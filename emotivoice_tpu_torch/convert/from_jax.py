@@ -1,0 +1,120 @@
+"""JAX param tree -> port state dict (the mirror of
+`emotivoice_tpu/convert/from_torch.py`).
+
+`jax_to_torch_state_dict(params, cfg)` takes the JAX `JETSGenerator`
+variables `{'params': {'am': ..., 'generator': ...}}` (or the inner dict),
+as numpy arrays, and returns a state dict for the port's `JETSGenerator`.
+Keys follow the reference checkpoint, so the port's own `state_dict()`
+converts back through `convert_jets_generator` unchanged. Layouts:
+Dense (in, out) -> Linear (out, in); nn.Conv (K, Ci, Co) -> (Co, Ci, K);
+LayerNorm scale -> weight; HiFi-GAN g, v, b are torch layout already.
+The alignment module is optional (a JAX tree initialised at inference has
+none); the port then keeps its own values for those keys.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping
+
+import numpy as np
+import torch
+
+from emotivoice_tpu_torch.config import AcousticConfig, EmotiVoiceConfig, VocoderConfig
+
+
+def _t(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, dtype=np.float32))
+
+
+class _Out(dict):
+    def dense(self, key: str, node: Mapping[str, Any]):
+        self[f"{key}.weight"] = _t(np.asarray(node["kernel"]).T)
+        if "bias" in node:
+            self[f"{key}.bias"] = _t(node["bias"])
+
+    def conv(self, key: str, node: Mapping[str, Any]):
+        self[f"{key}.weight"] = _t(np.asarray(node["kernel"]).transpose(2, 1, 0))
+        if "bias" in node:
+            self[f"{key}.bias"] = _t(node["bias"])
+
+    def ln(self, key: str, node: Mapping[str, Any]):
+        self[f"{key}.weight"] = _t(node["scale"])
+        self[f"{key}.bias"] = _t(node["bias"])
+
+    def wn(self, key: str, node: Mapping[str, Any]):
+        self[f"{key}.weight_g"] = _t(node["g"])
+        self[f"{key}.weight_v"] = _t(node["v"])
+        self[f"{key}.bias"] = _t(node["b"])
+
+
+def _encoder(out: _Out, key: str, tree: Mapping[str, Any], n_layers: int):
+    out[f"{key}.embed.0.alpha"] = _t(tree["pos_enc"]["alpha"])
+    for i in range(n_layers):
+        lt, lk = tree[f"layer_{i}"], f"{key}.encoders.{i}"
+        for name in ("linear_q", "linear_k", "linear_v", "linear_out"):
+            out.dense(f"{lk}.self_attn.{name}", lt["self_attn"][name])
+        out.conv(f"{lk}.feed_forward.w_1", lt["feed_forward"]["w_1"]["conv"])
+        out.conv(f"{lk}.feed_forward.w_2", lt["feed_forward"]["w_2"]["conv"])
+        out.ln(f"{lk}.norm1", lt["norm1"])
+        out.ln(f"{lk}.norm2", lt["norm2"])
+    out.ln(f"{key}.after_norm", tree["after_norm"])
+
+
+def _predictor(out: _Out, key: str, tree: Mapping[str, Any], n_layers: int):
+    for i in range(n_layers):
+        out.conv(f"{key}.conv.{i}.0", tree["conv"][f"conv_{i}"]["conv"])
+        out.ln(f"{key}.conv.{i}.2", tree["conv"][f"ln_{i}"])
+    out.dense(f"{key}.linear", tree["linear"])
+
+
+def prompt_tts_state_dict(am: Mapping[str, Any], a: AcousticConfig,
+                          prefix: str = "") -> Dict[str, torch.Tensor]:
+    """JAX PromptTTS params -> port PromptTTS state dict (keys under prefix)."""
+    out = _Out()
+    p = prefix
+    out[f"{p}src_word_emb.weight"] = _t(am["src_word_emb"]["embedding"])
+    out[f"{p}spk_tokenizer.weight"] = _t(am["spk_tokenizer"]["embedding"])
+    out.dense(f"{p}embed_projection1", am["embed_projection1"])
+    _encoder(out, f"{p}encoder", am["encoder"], a.encoder_n_layers)
+    _encoder(out, f"{p}decoder", am["decoder"], a.decoder_n_layers)
+    _predictor(out, f"{p}duration_predictor", am["duration_predictor"], a.duration_n_layers)
+    _predictor(out, f"{p}pitch_predictor", am["pitch_predictor"], a.variance_n_layers)
+    _predictor(out, f"{p}energy_predictor", am["energy_predictor"], a.energy_n_layers)
+    out.conv(f"{p}pitch_embed.0", am["pitch_embed"]["conv"]["conv"])
+    out.conv(f"{p}energy_embed.0", am["energy_embed"]["conv"]["conv"])
+    if "alignment_module" in am:
+        for name in ("t_conv1", "t_conv2", "f_conv1", "f_conv2", "f_conv3"):
+            out.conv(f"{p}alignment_module.{name}", am["alignment_module"][name]["conv"])
+    out.dense(f"{p}to_mel", am["to_mel"])
+    return dict(out)
+
+
+def hifigan_state_dict(gen: Mapping[str, Any], v: VocoderConfig,
+                       prefix: str = "") -> Dict[str, torch.Tensor]:
+    """JAX HiFiGANGenerator params -> port generator state dict."""
+    out = _Out()
+    p = prefix
+    out.wn(f"{p}conv_pre", gen["conv_pre"])
+    out.wn(f"{p}conv_post", gen["conv_post"])
+    for i in range(len(v.upsample_rates)):
+        out.wn(f"{p}ups.{i}", gen[f"ups_{i}"])
+    n_kernels = len(v.resblock_kernel_sizes)
+    for i in range(len(v.upsample_rates) * n_kernels):
+        block = gen[f"resblocks_{i}"]
+        for j in range(len(v.resblock_dilation_sizes[i % n_kernels])):
+            if v.resblock == "1":
+                out.wn(f"{p}resblocks.{i}.convs1.{j}", block[f"convs1_{j}"])
+                out.wn(f"{p}resblocks.{i}.convs2.{j}", block[f"convs2_{j}"])
+            else:
+                out.wn(f"{p}resblocks.{i}.convs.{j}", block[f"convs_{j}"])
+    return dict(out)
+
+
+def jax_to_torch_state_dict(params: Mapping[str, Any],
+                            cfg: EmotiVoiceConfig) -> Dict[str, torch.Tensor]:
+    if "params" in params:
+        params = params["params"]
+    return {
+        **prompt_tts_state_dict(params["am"], cfg.am, "am."),
+        **hifigan_state_dict(params["generator"], cfg.vocoder, "generator."),
+    }

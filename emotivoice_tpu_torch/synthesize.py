@@ -1,0 +1,72 @@
+"""Batch synthesis CLI of the PyTorch port (counterpart of
+`tools/synthesize.py`).
+
+Reads lines of `speaker|prompt|phonemes|content` and writes one int16 wav
+per line. Runs in smoke mode: parameters are random, made from `--seed`,
+and style/content embeddings are zero (checkpoint loading and the style
+encoder are later slices).
+
+  python -m emotivoice_tpu_torch.synthesize --test-file lines.txt \
+      --output-dir out/ [--dtype f32|bf16] [--device cuda|cpu]
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+
+import numpy as np
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser()
+    p.add_argument("--test-file", required=True)
+    p.add_argument("--output-dir", default="outputs/test_audio")
+    p.add_argument("--dtype", choices=["f32", "bf16"], default="f32",
+                   help="compute dtype (parameters stay f32)")
+    p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    p.add_argument("--batch-size", type=int, default=8)
+    p.add_argument("--alpha", type=float, default=1.0)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--tokenlist", default=None)
+    args = p.parse_args(argv)
+
+    from emotivoice_tpu_torch.config import EmotiVoiceConfig
+    from emotivoice_tpu_torch.frontend.tokens import TokenVocab
+    from emotivoice_tpu_torch.models.jets import JETSGenerator, init_random_
+    from emotivoice_tpu_torch.serving.engine import SynthesisEngine, SynthesisRequest
+    from emotivoice_tpu_torch.utils.audio_io import write_wav
+
+    vocab = TokenVocab.from_file(args.tokenlist) if args.tokenlist else TokenVocab.default()
+    cfg = EmotiVoiceConfig()
+    cfg = cfg.replace(am=cfg.am.__class__(**{**cfg.am.__dict__, "n_vocab": len(vocab)}))
+    print(f"WARNING: no checkpoint; random parameters from seed {args.seed} (smoke mode)")
+    model = init_random_(JETSGenerator(cfg), args.seed)
+    engine = SynthesisEngine(cfg, model, vocab, dtype=args.dtype, device=args.device)
+    zeros = np.zeros(cfg.am.bert_embedding, np.float32)
+
+    requests, names = [], []
+    with open(args.test_file, encoding="utf-8") as f:
+        for i, line in enumerate(f):
+            line = line.strip()
+            if not line:
+                continue
+            speaker, _prompt, phonemes, _content = line.split("|")
+            requests.append(SynthesisRequest(
+                phonemes=phonemes.split(),
+                speaker_id=int(speaker) if speaker.isdigit() else 0,
+                style_embedding=zeros, content_embedding=zeros, alpha=args.alpha,
+            ))
+            names.append(f"{i:04d}_{speaker}")
+
+    os.makedirs(args.output_dir, exist_ok=True)
+    for start in range(0, len(requests), args.batch_size):
+        chunk = requests[start:start + args.batch_size]
+        for name, res in zip(names[start:], engine.synthesize_batch(chunk)):
+            out = os.path.join(args.output_dir, f"{name}.wav")
+            write_wav(out, res.wav, cfg.audio.sampling_rate)
+            print(f"wrote {out} ({len(res.wav) / cfg.audio.sampling_rate:.2f}s)")
+
+
+if __name__ == "__main__":
+    main()

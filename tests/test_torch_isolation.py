@@ -1,0 +1,65 @@
+"""The port stands alone: every module of emotivoice_tpu_torch imports with
+jax and flax blocked and loads nothing of the JAX package, and
+chip_smoke.py imports neither."""
+
+import os
+import re
+import subprocess
+import sys
+import textwrap
+
+import test_torch_support  # noqa: F401  (one intra-op thread per worker)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(ROOT, "emotivoice_tpu_torch")
+
+
+def test_every_port_module_imports_without_jax():
+    code = textwrap.dedent(f"""
+        import importlib, pkgutil, sys
+        for name in ("jax", "jaxlib", "flax", "optax"):
+            sys.modules[name] = None  # any import of them raises ImportError
+        sys.path.insert(0, {ROOT!r})
+        import emotivoice_tpu_torch
+        names = [m.name for m in pkgutil.walk_packages(
+            emotivoice_tpu_torch.__path__, "emotivoice_tpu_torch.")]
+        for n in names:
+            importlib.import_module(n)
+        leaked = sorted(m for m in sys.modules
+                        if m == "emotivoice_tpu" or m.startswith("emotivoice_tpu."))
+        print(len(names), leaked)
+        assert not leaked, leaked
+    """)
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=300, cwd=ROOT)
+    assert res.returncode == 0, res.stderr
+    n, leaked = res.stdout.split(" ", 1)
+    assert int(n) >= 15 and leaked.strip() == "[]"
+
+
+def test_no_source_line_imports_jax_or_the_jax_package():
+    pat = re.compile(r"^\s*(import|from) +(jax|flax|emotivoice_tpu)\b")
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    for dirpath, _, names in os.walk(PKG):
+        files += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
+    bad = []
+    for path in files:
+        with open(path, encoding="utf-8") as f:
+            for i, line in enumerate(f, 1):
+                if pat.match(line):
+                    bad.append(f"{os.path.relpath(path, ROOT)}:{i}: {line.strip()}")
+    assert not bad, bad
+
+
+def test_chip_smoke_fails_without_a_card():
+    """No card: non-zero exit and no result line."""
+    code = textwrap.dedent(f"""
+        import runpy, sys, torch
+        torch.cuda.is_available = lambda: False
+        sys.argv = ["chip_smoke.py"]
+        runpy.run_path({os.path.join(ROOT, "chip_smoke.py")!r}, run_name="__main__")
+    """)
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=300, cwd=ROOT)
+    assert res.returncode != 0
+    assert '"ok": true' not in res.stdout

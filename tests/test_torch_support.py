@@ -1,0 +1,141 @@
+"""Shared helpers of the PyTorch port's parity tests (no tests of its own).
+
+Parameters and inputs are made from a seed with numpy and handed to both
+the JAX package (the reference) and the port, as numpy arrays.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+import jax
+
+from emotivoice_tpu import config as jcfg
+from emotivoice_tpu_torch import config as tcfg
+
+# Six xdist workers share the host's cores; one intra-op thread each.
+torch.set_num_threads(1)
+
+# A small vocoder with one stage at C=128 (per-unit kernel dispatch) and
+# one at C=64 (whole-stage kernel dispatch).
+SMALL_VOCODER = dict(
+    initial_channel=20,
+    upsample_initial_channel=256,
+    upsample_rates=(4, 2),
+    upsample_kernel_sizes=(8, 4),
+    resblock_kernel_sizes=(3, 7),
+    resblock_dilation_sizes=((1, 3), (1, 5)),
+)
+
+
+def both_configs(vocoder=None):
+    """(JAX config, port config) for tiny_test_config, optionally with a
+    replaced vocoder (kwargs of VocoderConfig)."""
+    j, t = jcfg.tiny_test_config(), tcfg.tiny_test_config()
+    if vocoder is not None:
+        j = j.replace(vocoder=jcfg.VocoderConfig(**vocoder))
+        t = t.replace(vocoder=tcfg.VocoderConfig(**vocoder))
+    return j, t
+
+
+def _fill(path, leaf, rng, mrf_scale):
+    shape = np.shape(leaf)
+    name = path[-1]
+    if name in ("embedding",):
+        return rng.randn(*shape)
+    if name == "alpha":
+        return np.asarray(1.0 + 0.1 * rng.randn())
+    if name == "scale":
+        return 1.0 + 0.1 * rng.randn(*shape)
+    if name in ("bias", "b"):
+        return 0.02 * rng.randn(*shape)
+    if name == "kernel":  # flax Dense / Conv: (..., in, out)
+        return rng.randn(*shape) / np.sqrt(np.prod(shape[:-1]))
+    if name == "v":  # weight-norm direction, torch layout
+        if any(p.startswith("resblocks") for p in path):
+            return rng.randn(*shape) * mrf_scale
+        if path[-2].startswith("ups"):  # (Ci, Co, K): Ci*K/stride inputs per output
+            return rng.randn(*shape) / np.sqrt(shape[0] * 2)
+        return rng.randn(*shape) / np.sqrt(np.prod(shape[1:]))
+    raise KeyError(f"no fill rule for {'/'.join(path)}")
+
+
+def random_params(tree, seed: int, mrf_scale: float = 0.04):
+    """A numpy tree of the same structure with seeded values.
+
+    MRF convs are drawn at std 0.04, the scale tests/test_pallas.py:53-67
+    explains (activations O(1) through the residual chains); every other
+    weight at 1/sqrt(fan_in). Weight-norm g is ||v|| times (1 + 0.1 N), so
+    the fold is not the identity."""
+    rng = np.random.RandomState(seed)
+    flat = jax.tree_util.tree_flatten_with_path(tree)[0]
+    vals = {}
+    for kp, leaf in flat:
+        path = tuple(k.key for k in kp)
+        if path[-1] == "g":
+            continue
+        vals[path] = np.asarray(_fill(path, leaf, rng, mrf_scale), np.float32)
+    for kp, leaf in flat:
+        path = tuple(k.key for k in kp)
+        if path[-1] == "g":
+            v = vals[path[:-1] + ("v",)]
+            norm = np.sqrt(np.sum(v * v, axis=tuple(range(1, v.ndim)), keepdims=True))
+            vals[path] = (norm * (1.0 + 0.1 * rng.randn(*norm.shape))).astype(np.float32)
+
+    def build(kp, leaf):
+        return vals[tuple(k.key for k in kp)]
+
+    return jax.tree_util.tree_map_with_path(build, tree)
+
+
+def jax_jets_params(cfg, seed: int, with_alignment: bool = False):
+    """JAX JETSGenerator variables with seeded numpy values. With
+    `with_alignment`, the tree is initialised through the training branch so
+    it also holds the alignment module."""
+    from emotivoice_tpu.models.jets import JETSGenerator
+
+    b, t = 1, 6
+    args = (
+        np.zeros((b, t), np.int32), np.full((b,), t, np.int32),
+        np.zeros((b,), np.int32),
+        np.zeros((b, cfg.am.bert_embedding), np.float32),
+        np.zeros((b, cfg.am.bert_embedding), np.float32),
+    )
+    if with_alignment:
+        tf = 12
+        kw = dict(
+            mel_targets=np.zeros((b, tf, cfg.am.n_mels), np.float32),
+            feats_lengths=np.full((b,), tf, np.int32),
+            pitch_targets=np.zeros((b, tf), np.float32),
+            energy_targets=np.zeros((b, tf), np.float32),
+            segment_rng=jax.random.PRNGKey(1),
+        )
+    else:
+        kw = dict(max_frames=16)
+    shapes = jax.eval_shape(
+        lambda: JETSGenerator(cfg).init(jax.random.PRNGKey(0), *args, **kw)
+    )
+    return random_params(shapes, seed)
+
+
+def port_jets(tcfg_, params):
+    """Port JETSGenerator on the CPU loaded from a JAX params tree."""
+    from emotivoice_tpu_torch.convert.from_jax import jax_to_torch_state_dict
+    from emotivoice_tpu_torch.models.jets import JETSGenerator
+
+    model = JETSGenerator(tcfg_)
+    sd = jax_to_torch_state_dict(params, tcfg_)
+    missing, unexpected = model.load_state_dict(sd, strict=False)
+    assert not unexpected, unexpected
+    assert all(k.startswith("am.alignment_module.") for k in missing), missing
+    return model.eval()
+
+
+def assert_close_rel(got, want, rtol_of_max: float):
+    """|got - want| <= rtol_of_max * max|want| everywhere, and want is not
+    near zero (so the comparison can fail)."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    scale = np.max(np.abs(want))
+    assert scale > 1e-3, f"reference output is near zero (max |ref| = {scale})"
+    np.testing.assert_allclose(got, want, rtol=0, atol=rtol_of_max * scale)
