@@ -6,11 +6,14 @@
 Phases (any failure exits non-zero and prints no result line):
   1. device   - require a CUDA card; print its name and power limit;
   2. build    - compile the port's kernels from emotivoice_tpu_torch/csrc
-                with nvcc for sm_90a;
+                with nvcc for sm_90a; count the tensor-core instructions
+                (HMMA / HGMMA) of each kernel instantiation in the SASS
+                (cuobjdump) and fail if a bf16 one has none;
   3. kernels  - each kernel against its plain PyTorch version on the card,
                 at the main path's shapes (bench bucket: batch 16, 384 mel
                 frames) and at a ragged T, in f32 (TF32 off) and bf16;
-                times of kernel, plain version and the cuDNN convolutions;
+                times of kernel, plain version and the cuDNN convolutions,
+                share of the bound and factor against cuDNN;
   4. main     - the full-width EmotiVoiceConfig model (random parameters
                 from a seed) behind SynthesisEngine + MicroBatcher answers
                 mixed requests; launch counters must read 18 + 2 per
@@ -27,6 +30,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -98,6 +102,35 @@ def phase_device() -> str:
 # 2. build
 # ---------------------------------------------------------------------------
 
+KERNEL_SYMBOL = re.compile(
+    r"Function : \S*?(residual_unit_kernel|mrf_stage_kernel)ILi(\d+)E(13__nv_bfloat16|f)E")
+
+
+def parse_sass_mma(sass: str) -> dict:
+    """Tensor-core instructions (HMMA / HGMMA) per kernel instantiation in a
+    `cuobjdump --dump-sass` listing, keyed (kernel, C, dtype)."""
+    counts, key = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            m = KERNEL_SYMBOL.search(line)
+            key = (m.group(1), int(m.group(2)), "f32" if m.group(3) == "f" else "bf16") if m else None
+            if key:
+                counts[key] = 0
+        elif key and ("HMMA" in line or "HGMMA" in line):
+            counts[key] += 1
+    return counts
+
+
+def sass_mma_counts(lib_path: str, nvcc: str) -> dict:
+    """parse_sass_mma of the kernel library, dumped by the cuobjdump beside nvcc."""
+    cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
+    res = subprocess.run([cuobjdump, "--dump-sass", lib_path], capture_output=True, text=True,
+                         timeout=300)
+    if res.returncode != 0:
+        fail(f"cuobjdump --dump-sass failed: {res.stderr.strip()[-500:]}")
+    return parse_sass_mma(res.stdout)
+
+
 def phase_build() -> None:
     from emotivoice_tpu_torch.ops.cuda import build
 
@@ -108,8 +141,16 @@ def phase_build() -> None:
     log(f"[build] {build.LIB_NAME} from {build.CSRC_DIR} with {' '.join(build.NVCC_FLAGS)}: "
         f"{secs:.1f} s ({'built' if build.build_seconds else 'reused'})")
     for line in build.build_log.splitlines():
-        if "registers" in line or "spill" in line.lower():
+        if "registers" in line or "spill" in line.lower() or "Compiling entry" in line:
             log(f"[build] {line.strip()}")
+    counts = sass_mma_counts(os.path.join(build.BUILD_DIR, build.LIB_NAME), build.find_nvcc())
+    for (name, c, dname), n in sorted(counts.items()):
+        log(f"[build] SASS {name}<C={c}, {dname}>: {n} HMMA/HGMMA instructions")
+    report["sass_mma"] = {f"{k[0]}/{k[1]}/{k[2]}": v for k, v in sorted(counts.items())}
+    for name in ("residual_unit_kernel", "mrf_stage_kernel"):
+        bf16 = {c: n for (k, c, dname), n in counts.items() if k == name and dname == "bf16"}
+        if not bf16 or not all(bf16.values()):
+            fail(f"{name}: bf16 instantiation without tensor-core instructions: {bf16}")
 
 
 # ---------------------------------------------------------------------------
@@ -228,11 +269,14 @@ def phase_kernels(dev) -> dict:
         log(f"[kernels] {r['kernel']:<19} {r['dtype']:<4} C={r['C']:<3} T={r['T']:<6} "
             f"k={r['k']} d={r['d']} rel_err={r['err']:.2e} ms={r['ms']:.3f} "
             f"plain_ms={r['plain_ms']:.3f} cudnn_ms={r['library_ms']:.3f} "
-            f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']})")
+            f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) "
+            f"bound_share={r['bound_ms'] / r['ms']:.4f} x_cudnn={r['ms'] / r['library_ms']:.2f} "
+            f"TFLOP/s={r['flop'] / r['ms'] / 1e9:.1f}")
     for (name, dname), t in totals.items():
         log(f"[kernels] per generator call at the bench bucket: {name} {dname} "
             f"{t['calls']} launches ms={t['ms']:.2f} plain_ms={t['plain_ms']:.2f} "
             f"cudnn_ms={t['library_ms']:.2f} bound_ms={t['bound_ms']:.3f} "
+            f"bound_share={t['bound_ms'] / t['ms']:.4f} x_cudnn={t['ms'] / t['library_ms']:.2f} "
             f"TFLOP/s={t['flop'] / t['ms'] / 1e9:.1f} max_rel_err={t['err']:.2e}")
     report["kernel_rows"] = rows
     report["kernel_totals"] = {f"{k[0]}/{k[1]}": v for k, v in totals.items()}
@@ -404,9 +448,12 @@ def main() -> None:
             launches=main_out["launches"][name], max_abs_err=kern["worst"][name],
             ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
             bound_by="operations" if t["flop"] / PEAK_BF16 >= t["bytes"] / PEAK_BYTES else "bytes",
-            library_ms=t["library_ms"], dtype="bf16", shape="bench bucket, one generator call",
+            library_ms=t["library_ms"], bound_share=t["bound_ms"] / t["ms"],
+            x_cudnn=t["ms"] / t["library_ms"], tflops=t["flop"] / t["ms"] / 1e9,
+            dtype="bf16", shape="bench bucket, one generator call",
             ms_f32=t32["ms"], plain_ms_f32=t32["plain_ms"], library_ms_f32=t32["library_ms"],
-            bound_ms_f32=t32["bound_ms"],
+            bound_ms_f32=t32["bound_ms"], bound_share_f32=t32["bound_ms"] / t32["ms"],
+            x_cudnn_f32=t32["ms"] / t32["library_ms"],
         ))
     report["kernels"] = kernels
     if args.report:

@@ -1,14 +1,25 @@
-// Shared pieces of the HiFi-GAN MRF kernels (resblock.cu, mrf_stage.cu).
+// Shared pieces of the HiFi-GAN MRF kernels (resblock.cu, mrf_stage.cu),
+// which replace the TPU kernels emotivoice_tpu/ops/pallas/resblock.py
+// (fused_residual_unit) and emotivoice_tpu/ops/pallas/packed_stage.py
+// (fused_mrf_stage).
 //
 // Layout: activations are feature-last (B, T, C) rows of C contiguous values;
 // conv weights are HIO (K, C_in, C_out) with weight norm already folded;
 // biases are (C,). Storage type T is float or __nv_bfloat16; every product
 // and sum is taken in f32, and results are rounded back to T where the JAX
-// reference rounds (after each conv + bias, after each residual add).
+// reference rounds (after each conv, after its bias add, after each
+// residual add).
 //
-// conv_rows() is the one compute loop both kernels use: a block of
-// kThreads threads computes an (n_out x C) conv output from a haloed tile of
-// f32 activations held in shared memory. Each warp owns kRowsPerThread rows
+// This header holds the f32 instantiation's compute loop. The bf16
+// instantiation runs on the tensor cores through mma_conv() (mma_conv.cuh),
+// chosen at compile time by storage type.
+//
+// conv_rows() is the f32 loop both kernels use: a block of kThreads threads
+// computes an (n_out x C) conv output from a haloed tile of f32 activations
+// held in shared memory, one f32 FMA per product on the CUDA cores. Bound on
+// the H100: operations, against the 67 TFLOP/s of the f32 CUDA cores (the
+// tensor cores take f32 only as TF32, whose 10-bit mantissa would break the
+// 2e-4 agreement with the plain version). Each warp owns kRowsPerThread rows
 // of a kRowsPerPass-row pass and each lane C/32 output channels, strided by
 // 32 so the shared-memory weight reads of a warp are conflict-free and its
 // activation reads are one broadcast. Weights stream through shared memory

@@ -23,11 +23,25 @@
 // in every conv input (the zero padding of each conv; the JAX validity mask
 // at packed_stage.py:225-239). The chain outputs sum into an f32
 // accumulator in shared memory; the tile is written to device memory once.
-// The 18 intermediates never leave the SM. The convs run on the f32 CUDA
-// cores (conv_tile.cuh); the halo recomputation costs up to 2x at the k=11
-// chain's first unit, which a wider tile (bf16 storage) would cut.
+// The 18 intermediates never leave the SM.
+//
+// bf16: every conv runs on the tensor cores through mma_conv() (mma_conv.cuh:
+// mma.sync m16n8k16, ldmatrix from swizzled bf16 tiles, weights through a
+// 2-stage cp.async ring of 128 rows of W, two taps at C=64 and four at C=32,
+// since a unit's weights, 180 KB at k=11 C=64, do not fit beside the tile).
+// The ring streams on from each conv into the next, across units and
+// chains. The chain activation and intermediate are bf16 in shared memory,
+// so the tile is 320 rows at C=64 and 768 at C=32 (the k=11 chain's first
+// conv covers 1.34x / 1.14x the tile's rows).
+//
+// f32: the CUDA-core loop conv_rows() (conv_tile.cuh), one f32 FMA per
+// product; the tensor cores take f32 only as TF32, whose 10-bit mantissa
+// would break the f32 path's 2e-4 agreement with its plain version.
+
+#include <type_traits>
 
 #include "conv_tile.cuh"
+#include "mma_conv.cuh"
 
 namespace evt {
 
@@ -51,10 +65,11 @@ __host__ __device__ inline int chain_halo(const StageArgs& a, int j) {
   return h;
 }
 
-template <int C, typename T>
-__global__ void __launch_bounds__(kThreads)
-mrf_stage_kernel(const T* __restrict__ x, T* __restrict__ y, const StageArgs a,
-                 int T_len, int tile, int halo) {
+template <int C>
+__device__ __forceinline__ void stage_cuda_cores(const float* __restrict__ x,
+                                                 float* __restrict__ y, const StageArgs& a,
+                                                 int T_len, int tile, int halo) {
+  using T = float;
   extern __shared__ float smem[];
   const int n_x = tile + 2 * halo;
   float* xs = smem;              // chain activation, global row t0 - halo + i
@@ -115,16 +130,125 @@ mrf_stage_kernel(const T* __restrict__ x, T* __restrict__ y, const StageArgs a,
   }
 }
 
+template <int C>
+__device__ __forceinline__ void stage_tensor_cores(const bf16* __restrict__ x,
+                                                   bf16* __restrict__ y, const StageArgs& a,
+                                                   int T_len, int tile, int halo) {
+  constexpr int kChunks = C / 8;
+  extern __shared__ float smem[];
+  const int n_x = tile + 2 * halo;
+  bf16* xs = reinterpret_cast<bf16*>(smem);  // chain activation, global row t0 - halo + i
+  bf16* mid = xs + n_x * C;                  // lrelu(conv1 + b1), same row indexing
+  float* acc = reinterpret_cast<float*>(mid + n_x * C);  // sum of chain outputs, [tile][C]
+  WeightRing ring{reinterpret_cast<bf16*>(acc + tile * C), 0, false};  // kRingElems
+
+  const int b = blockIdx.y;
+  const int t0 = blockIdx.x * tile;
+  const int g_base = t0 - halo;  // global row of xs[0] and mid[0]
+  const bf16* xb = x + (size_t)b * T_len * C;
+  bf16* yb = y + (size_t)b * T_len * C;
+
+  for (int i = threadIdx.x; i < tile * C / 4; i += kThreads)
+    reinterpret_cast<float4*>(acc)[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+
+  for (int j = 0; j < a.n_chains; ++j) {
+    const int K = a.k[j];
+    const int hj = chain_halo(a, j);
+    int lo = halo - hj;           // first live row of the chain in xs
+    int ext = tile + 2 * hj;      // live rows
+    __syncthreads();              // previous chain's accumulate has finished
+    load_rows_bf16<C>(xs, lo, xb, g_base + lo, ext, T_len);
+    cp_async_wait<0>();           // x rows (and the primed weight chunks) have landed
+    for (int u = 0; u < a.n_units[j]; ++u) {
+      const int d = a.d[j][u];
+      const int h1 = (K - 1) / 2 * d, h2 = (K - 1) / 2;
+      const bf16* w1 = (const bf16*)a.w1[j][u];
+      const bf16* b1 = (const bf16*)a.b1[j][u];
+      const bf16* w2 = (const bf16*)a.w2[j][u];
+      const bf16* b2 = (const bf16*)a.b2[j][u];
+      // the conv after this unit's conv2: the next unit's or chain's conv1
+      const bool last_unit = u + 1 == a.n_units[j];
+      const bool last_chain = j + 1 == a.n_chains;
+      const bf16* w_next = (const bf16*)(!last_unit   ? a.w1[j][u + 1]
+                                         : !last_chain ? a.w1[j + 1][0]
+                                                       : nullptr);
+      const int k_next = !last_unit ? K : !last_chain ? a.k[j + 1] : 0;
+      const int m0 = lo + h1;     // first conv1 output row
+      mma_conv<C, true>(xs, lo, ext - 2 * h1, w1, b1, K, d, ring, w2, K,
+                        [&](int m, int co, bf16x2 v) {
+        const int row = m0 + m;
+        const int g = g_base + row;
+        pair_at(mid + elem_at<C>(row, co)) =
+            (g >= 0 && g < T_len) ? lrelu2(v) : __float2bfloat162_rn(0.f);
+      });
+      const int r0 = m0 + h2;     // first conv2 output row
+      mma_conv<C, false>(mid, m0, ext - 2 * h1 - 2 * h2, w2, b2, K, 1, ring, w_next, k_next,
+                         [&](int r, int co, bf16x2 v) {
+        const int row = r0 + r;
+        const int g = g_base + row;
+        bf16x2& xv = pair_at(xs + elem_at<C>(row, co));
+        xv = (g >= 0 && g < T_len) ? __hadd2(xv, v) : __float2bfloat162_rn(0.f);
+      });
+      lo += h1 + h2;
+      ext -= 2 * (h1 + h2);
+    }
+    // lo == halo and ext == tile here: the chain output is the tile; the
+    // last mma_conv ended with a barrier.
+    for (int i = threadIdx.x; i < tile * kChunks; i += kThreads) {
+      const int r = i / kChunks, ch = i % kChunks;
+      const uint4 v = *reinterpret_cast<const uint4*>(xs + 8 * chunk_at<C>(halo + r, ch));
+      const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
+      float* dst = acc + r * C + ch * 8;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const float2 f = __bfloat1622float2(h[q]);
+        dst[2 * q] += f.x;
+        dst[2 * q + 1] += f.y;
+      }
+    }
+  }
+  __syncthreads();
+  const float inv = 1.f / (float)a.n_chains;
+  for (int i = threadIdx.x; i < tile * kChunks; i += kThreads) {
+    const int r = i / kChunks, ch = i % kChunks;
+    const int g = t0 + r;
+    if (g >= T_len) continue;
+    const float* src = acc + r * C + ch * 8;
+    uint4 v;
+    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&v);
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      h[q] = __floats2bfloat162_rn(src[2 * q] * inv, src[2 * q + 1] * inv);
+    *reinterpret_cast<uint4*>(yb + (size_t)g * C + ch * 8) = v;
+  }
+}
+
+template <int C, typename T>
+__global__ void __launch_bounds__(kThreads)
+mrf_stage_kernel(const T* __restrict__ x, T* __restrict__ y, const StageArgs a,
+                 int T_len, int tile, int halo) {
+  if constexpr (std::is_same<T, float>::value)
+    stage_cuda_cores<C>(x, y, a, T_len, tile, halo);
+  else
+    stage_tensor_cores<C>(x, y, a, T_len, tile, halo);
+}
+
 template <int C, typename T>
 static int launch(const void* x, void* y, const StageArgs& a, int B, int T_len,
-                  int tile, cudaStream_t stream) {
+                  int tile, int kc, cudaStream_t stream) {
   int halo = 0;
   for (int j = 0; j < a.n_chains; ++j) {
     const int h = chain_halo(a, j);
     if (h > halo) halo = h;
   }
-  const size_t smem =
-      sizeof(float) * C * (2 * (size_t)(tile + 2 * halo) + tile + kCiChunk);
+  const size_t n_x = (size_t)tile + 2 * halo;
+  size_t smem;
+  if constexpr (std::is_same<T, float>::value) {
+    smem = sizeof(float) * C * (2 * n_x + tile + kCiChunk);
+  } else {
+    if (kc != MmaCfg<C>::kKC) return (int)cudaErrorInvalidValue;
+    smem = sizeof(bf16) * (C * 2 * n_x + MmaTile<C>::kRingElems) + sizeof(float) * C * tile;
+  }
   auto kern = mrf_stage_kernel<C, T>;
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -136,12 +260,12 @@ static int launch(const void* x, void* y, const StageArgs& a, int B, int T_len,
 
 template <typename T>
 static int dispatch_c(int C, const void* x, void* y, const StageArgs& a, int B,
-                      int T_len, int tile, cudaStream_t s) {
+                      int T_len, int tile, int kc, cudaStream_t s) {
   switch (C) {
-    case 32: return launch<32, T>(x, y, a, B, T_len, tile, s);
-    case 64: return launch<64, T>(x, y, a, B, T_len, tile, s);
-    case 128: return launch<128, T>(x, y, a, B, T_len, tile, s);
-    case 256: return launch<256, T>(x, y, a, B, T_len, tile, s);
+    case 32: return launch<32, T>(x, y, a, B, T_len, tile, kc, s);
+    case 64: return launch<64, T>(x, y, a, B, T_len, tile, kc, s);
+    case 128: return launch<128, T>(x, y, a, B, T_len, tile, kc, s);
+    case 256: return launch<256, T>(x, y, a, B, T_len, tile, kc, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -153,10 +277,11 @@ static int dispatch_c(int C, const void* x, void* y, const StageArgs& a, int B,
 //   ks:      kernel size per chain
 //   n_units: residual units per chain
 //   dils:    dilation per unit, chains one after another
+//   kc:      weight rows per ring stage of the bf16 path, MmaCfg<C>::kKC (ignored for f32)
 // Returns cudaGetLastError() after the launch, or cudaErrorInvalidValue.
 extern "C" int evt_mrf_stage(const void* x, void* y, const void* const* ptrs,
                              const int* ks, const int* n_units, const int* dils,
-                             int n_chains, int B, int T_len, int C, int tile,
+                             int n_chains, int B, int T_len, int C, int tile, int kc,
                              int is_bf16, void* stream) {
   if (n_chains < 1 || n_chains > evt::kMaxChains) return (int)cudaErrorInvalidValue;
   evt::StageArgs a = {};
@@ -175,6 +300,6 @@ extern "C" int evt_mrf_stage(const void* x, void* y, const void* const* ptrs,
     }
   }
   cudaStream_t s = (cudaStream_t)stream;
-  if (is_bf16) return evt::dispatch_c<__nv_bfloat16>(C, x, y, a, B, T_len, tile, s);
-  return evt::dispatch_c<float>(C, x, y, a, B, T_len, tile, s);
+  if (is_bf16) return evt::dispatch_c<__nv_bfloat16>(C, x, y, a, B, T_len, tile, kc, s);
+  return evt::dispatch_c<float>(C, x, y, a, B, T_len, tile, kc, s);
 }

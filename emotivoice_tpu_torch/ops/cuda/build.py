@@ -107,11 +107,11 @@ def build() -> str:
 
 def _declare(lib: ctypes.CDLL) -> None:
     vp, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.evt_residual_unit.argtypes = [vp] * 6 + [i32] * 7 + [vp]
+    lib.evt_residual_unit.argtypes = [vp] * 6 + [i32] * 8 + [vp]
     lib.evt_residual_unit.restype = i32
     lib.evt_mrf_stage.argtypes = [
         vp, vp, ctypes.POINTER(vp), ctypes.POINTER(i32), ctypes.POINTER(i32),
-        ctypes.POINTER(i32), i32, i32, i32, i32, i32, i32, vp,
+        ctypes.POINTER(i32), i32, i32, i32, i32, i32, i32, i32, vp,
     ]
     lib.evt_mrf_stage.restype = i32
     lib.evt_error_string.argtypes = [i32]

@@ -7,7 +7,8 @@ chunk plan and weight rolls are not carried over. The kernel is
 `emotivoice_tpu_torch/csrc/mrf_stage.cu`; its header comment states what
 bounds it on the H100 (operations: 252*C*C FLOP per row for the V1 stage)
 and what its design does about that (all chains run on one tile in shared
-memory; the tile is read once per chain and written once).
+memory; the tile is read once per chain and written once; in bf16 every conv
+runs on the tensor cores, `csrc/mma_conv.cuh`).
 
 `fused_mrf_stage` launches the kernel for a CUDA tensor and takes the plain
 version for a CPU tensor; any other device, dtype or shape raises.
@@ -22,14 +23,16 @@ import torch
 
 from emotivoice_tpu_torch.ops.cuda import build
 from emotivoice_tpu_torch.ops.cuda.resblock import (
-    CI_CHUNK,
+    CHANNELS,
     ROWS_PER_PASS,
     SMEM_LIMIT,
     check_operands,
     residual_unit_plain,
+    ring_rows,
+    weight_smem,
 )
 
-MAX_TILE = 512
+MAX_TILE = {torch.float32: 512, torch.bfloat16: 768}
 MAX_CHAINS = 4  # kMaxChains in csrc/mrf_stage.cu
 MAX_UNITS = 4  # kMaxUnits
 
@@ -56,13 +59,22 @@ def stage_halo(kernel_sizes, dilation_sizes) -> int:
     )
 
 
-def stage_tile(c: int, halo: int, t: int) -> int:
-    """Largest multiple of 64 rows (at most 512, at most T rounded up) whose
-    activation, intermediate and accumulator fit in shared memory."""
-    cap = min(MAX_TILE, -(-t // ROWS_PER_PASS) * ROWS_PER_PASS)
+def stage_smem(c: int, halo: int, tile: int, dtype: torch.dtype) -> int:
+    """Shared memory of one block: chain activation and intermediate (x's
+    dtype, haloed), f32 accumulator, weights."""
+    item = 2 if dtype == torch.bfloat16 else 4
+    return item * c * 2 * (tile + 2 * halo) + 4 * c * tile + weight_smem(c, dtype)
+
+
+def stage_tile(c: int, halo: int, t: int, dtype: torch.dtype = torch.float32) -> int:
+    """Largest multiple of 64 rows (at most MAX_TILE[dtype], at most T
+    rounded up) whose tiles and weights fit in shared memory."""
+    if c not in CHANNELS:
+        raise ValueError(f"no kernel for C={c}; C must be one of {CHANNELS}")
+    cap = min(MAX_TILE[dtype], -(-t // ROWS_PER_PASS) * ROWS_PER_PASS)
     tile = cap
     while tile > 0:
-        if 4 * c * (2 * (tile + 2 * halo) + tile + CI_CHUNK) <= SMEM_LIMIT:
+        if stage_smem(c, halo, tile, dtype) <= SMEM_LIMIT:
             return tile
         tile -= ROWS_PER_PASS
     raise ValueError(f"no time tile fits shared memory at C={c}, halo {halo}")
@@ -92,7 +104,7 @@ def fused_mrf_stage(x, weights: StageWeights, kernel_sizes: Sequence[int],
                 shapes.append(shape)
                 ptrs.append(tns.data_ptr())
     check_operands("fused_mrf_stage", x, tensors, shapes)
-    tile = stage_tile(c, stage_halo(kernel_sizes, dilation_sizes), t)
+    tile = stage_tile(c, stage_halo(kernel_sizes, dilation_sizes), t, x.dtype)
     lib = build.load()
     y = torch.empty_like(x)
     stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -103,7 +115,7 @@ def fused_mrf_stage(x, weights: StageWeights, kernel_sizes: Sequence[int],
         (i32 * n_chains)(*[int(k) for k in kernel_sizes]),
         (i32 * n_chains)(*n_units),
         (i32 * len(dils))(*dils),
-        n_chains, bsz, t, c, tile, int(x.dtype == torch.bfloat16),
+        n_chains, bsz, t, c, tile, ring_rows(c, x.dtype), int(x.dtype == torch.bfloat16),
         ctypes.c_void_p(stream),
     )
     build.check(err, "fused_mrf_stage")

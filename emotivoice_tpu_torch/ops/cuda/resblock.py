@@ -5,7 +5,8 @@ Replaces the TPU kernel `emotivoice_tpu/ops/pallas/resblock.py`
 (`fused_residual_unit`). The kernel is `emotivoice_tpu_torch/csrc/resblock.cu`;
 its header comment states what bounds it on the H100 (operations: hundreds
 of FLOP per byte moved) and what its design does about that (the
-intermediate stays in shared memory, x is read once and y written once).
+intermediate stays in shared memory, x is read once and y written once; in
+bf16 both convs run on the tensor cores, `csrc/mma_conv.cuh`).
 
 `fused_residual_unit` launches the kernel for a CUDA tensor and takes the
 plain version for a CPU tensor; any other device, dtype or shape raises.
@@ -14,6 +15,7 @@ plain version for a CPU tensor; any other device, dtype or shape raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -22,13 +24,33 @@ from emotivoice_tpu_torch.ops.cuda import build
 
 LRELU_SLOPE = 0.1
 SMEM_LIMIT = 232_448  # bytes of shared memory one block may use on sm_90
-ROWS_PER_PASS = 64  # kRowsPerPass in csrc/conv_tile.cuh
-CI_CHUNK = 16  # kCiChunk in csrc/conv_tile.cuh
+CHANNELS = (32, 64, 128, 256)  # C the kernels are instantiated for
+# f32 instantiation: the CUDA-core loop of csrc/conv_tile.cuh
+ROWS_PER_PASS = 64  # kRowsPerPass
+CI_CHUNK = 16  # kCiChunk
 MAX_PASSES = 8
+# bf16 instantiation: the tensor-core core of csrc/mma_conv.cuh
+WARPS = 8  # kWarps
+MMA_ROWS = 16  # rows of one mma.sync m16 tile
+# MmaCfg<C> as (kWN, kNT, kMT, kKC, kStages): warps across C_out, n8 tiles and
+# m16 tiles per warp, weight rows (tap x C_in) per ring stage, ring depth
+MMA_CFG = {
+    32: (1, 4, 8, 128, 2),
+    64: (1, 8, 4, 128, 2),
+    128: (2, 8, 4, 128, 2),
+    256: (4, 8, 4, 64, 2),
+}
+# Fewest rows of a bf16 tile: each weight byte a block streams from L2 serves
+# that many rows, and below ~64 rows L2 becomes the limit.
+MMA_MIN_ROWS = {32: 64, 64: 64, 128: 128, 256: 64}
+H100_SMS = 132  # streaming multiprocessors of an H100 SXM
 
 
 def lrelu(x: torch.Tensor, slope: float = LRELU_SLOPE) -> torch.Tensor:
-    return F.leaky_relu(x, slope)
+    """max(x, x * slope) with the slope in x's dtype: in bf16 that is
+    JAX's rounding (slope bf16(0.1), one rounding of the product), which the
+    kernels' bf16 path reproduces; in f32 it equals F.leaky_relu."""
+    return torch.maximum(x, x * torch.tensor(slope, dtype=x.dtype))
 
 
 def conv_same(a: torch.Tensor, w_hio: torch.Tensor, bias: torch.Tensor,
@@ -48,30 +70,95 @@ def residual_unit_plain(x, w1, b1, w2, b2, k: int, d: int) -> torch.Tensor:
     return x + xt
 
 
-def unit_tile(c: int, k: int, d: int, t: int) -> int:
-    """Time tile of the kernel: conv1 covers tile + 2*(k-1)/2 rows, a whole
-    number of 64-row passes, within the shared-memory limit."""
+def ring_rows(c: int, dtype: torch.dtype) -> int:
+    """Weight rows per ring stage passed to the kernel (`kc`): bf16 only."""
+    return MMA_CFG[c][3] if dtype == torch.bfloat16 else 0
+
+
+def weight_smem(c: int, dtype: torch.dtype) -> int:
+    """Bytes of shared memory the weights take: the bf16 path's cp.async
+    ring, or the f32 loop's chunk of CI_CHUNK input channels."""
+    if dtype == torch.bfloat16:
+        _, _, _, kc, stages = MMA_CFG[c]
+        return stages * kc * c * 2
+    return 4 * CI_CHUNK * c
+
+
+def pass_rows(c: int, dtype: torch.dtype) -> int:
+    """Output rows one pass of the kernel's conv loop covers."""
+    if dtype == torch.bfloat16:
+        wn, _, mt, _, _ = MMA_CFG[c]
+        return WARPS // wn * mt * MMA_ROWS
+    return ROWS_PER_PASS
+
+
+def unit_smem(c: int, k: int, d: int, tile: int, dtype: torch.dtype) -> int:
+    """Shared memory of one block: haloed x tile, intermediate, weights."""
     h1, h2 = (k - 1) // 2 * d, (k - 1) // 2
+    item = 2 if dtype == torch.bfloat16 else 4
+    return item * c * ((tile + 2 * (h1 + h2)) + (tile + 2 * h2)) + weight_smem(c, dtype)
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@functools.lru_cache(maxsize=None)
+def unit_tile(c: int, k: int, d: int, t: int, dtype: torch.dtype = torch.float32,
+              batch: int = 1, n_sm: int = H100_SMS) -> int:
+    """Time tile of the kernel, within the shared-memory limit.
+
+    f32: conv1 covers tile + 2*(k-1)/2 rows, a whole number of 64-row passes
+    (at most MAX_PASSES), as large as fits.
+
+    bf16: conv1 covers at most one pass of the tensor-core core, the tile has
+    at least MMA_MIN_ROWS[c] rows (fewer only where the pass is shorter), and
+    the tile or conv1's rows are a whole number of m16 tiles. Of those, the
+    tile with the least waves * work: waves = ceil(blocks / n_sm), work = the
+    m16 tiles per warp of both convs plus one per conv for its weight stream.
+    """
+    if c not in CHANNELS:
+        raise ValueError(f"no kernel for C={c}; C must be one of {CHANNELS}")
+    h2 = (k - 1) // 2
     best = None
-    max_p = min(MAX_PASSES, -(-(t + 2 * h2) // ROWS_PER_PASS))
-    for p in range(1, max(1, max_p) + 1):
-        tile = ROWS_PER_PASS * p - 2 * h2
-        smem = 4 * c * ((tile + 2 * (h1 + h2)) + (tile + 2 * h2) + CI_CHUNK)
-        if tile > 0 and smem <= SMEM_LIMIT:
-            best = tile
+    if dtype != torch.bfloat16:
+        for p in range(1, max(1, min(MAX_PASSES, _cdiv(t + 2 * h2, ROWS_PER_PASS))) + 1):
+            tile = ROWS_PER_PASS * p - 2 * h2
+            if tile > 0 and unit_smem(c, k, d, tile, dtype) <= SMEM_LIMIT:
+                best = tile
+    else:
+        warps_m = WARPS // MMA_CFG[c][0]
+        rows = pass_rows(c, dtype)
+        hi = rows - 2 * h2
+        lo = min(MMA_MIN_ROWS[c], hi)
+        cands = {m * MMA_ROWS for m in range(1, rows // MMA_ROWS + 1)}
+        cands |= {m * MMA_ROWS - 2 * h2 for m in range(1, rows // MMA_ROWS + 1)}
+        best_cost = None
+        for tile in sorted(x for x in cands if lo <= x <= hi):
+            if unit_smem(c, k, d, tile, dtype) > SMEM_LIMIT:
+                break
+            waves = _cdiv(batch * _cdiv(t, tile), n_sm)
+            work = sum(_cdiv(_cdiv(n, MMA_ROWS), warps_m) + 1 for n in (tile + 2 * h2, tile))
+            if best_cost is None or waves * work <= best_cost:
+                best, best_cost = tile, waves * work
     if best is None:
         raise ValueError(f"no time tile fits shared memory at C={c} k={k} d={d}")
     return best
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of the card, which unit_tile fills in waves."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def check_operands(name: str, x: torch.Tensor, tensors, shapes) -> None:
     """Device, dtype, shape and contiguity checks shared by the wrappers."""
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"{name}: dtype must be float32 or bfloat16, got {x.dtype}")
-    if x.dim() != 3 or x.shape[2] % 32 or x.shape[2] > 256:
+    if x.dim() != 3 or x.shape[2] not in CHANNELS:
         raise ValueError(
-            f"{name}: x must be (B, T, C) with C a multiple of 32 up to 256, "
-            f"got {tuple(x.shape)}")
+            f"{name}: x must be (B, T, C) with C one of {CHANNELS}, got {tuple(x.shape)}")
     for t, shape in zip((x, *tensors), (tuple(x.shape), *shapes)):
         if t.device != x.device or t.dtype != x.dtype:
             raise ValueError(f"{name}: operands must share x's device and dtype")
@@ -79,6 +166,8 @@ def check_operands(name: str, x: torch.Tensor, tensors, shapes) -> None:
             raise ValueError(f"{name}: expected shape {shape}, got {tuple(t.shape)}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: operands must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: operands must be 16-byte aligned")
 
 
 def fused_residual_unit(x, w1, b1, w2, b2, k: int, d: int) -> torch.Tensor:
@@ -91,14 +180,14 @@ def fused_residual_unit(x, w1, b1, w2, b2, k: int, d: int) -> torch.Tensor:
     bsz, t, c = x.shape
     check_operands("fused_residual_unit", x, (w1, b1, w2, b2),
                    ((k, c, c), (c,), (k, c, c), (c,)))
-    tile = unit_tile(c, k, d, t)
+    tile = unit_tile(c, k, d, t, x.dtype, bsz, sm_count(x.device))
     lib = build.load()
     y = torch.empty_like(x)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = lib.evt_residual_unit(
         x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-        y.data_ptr(), bsz, t, c, k, d, tile, int(x.dtype == torch.bfloat16),
-        ctypes.c_void_p(stream),
+        y.data_ptr(), bsz, t, c, k, d, tile, ring_rows(c, x.dtype),
+        int(x.dtype == torch.bfloat16), ctypes.c_void_p(stream),
     )
     build.check(err, "fused_residual_unit")
     fused_residual_unit.launches += 1
