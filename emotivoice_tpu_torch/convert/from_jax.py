@@ -10,6 +10,10 @@ Dense (in, out) -> Linear (out, in); nn.Conv (K, Ci, Co) -> (Co, Ci, K);
 LayerNorm scale -> weight; HiFi-GAN g, v, b are torch layout already.
 The alignment module is optional (a JAX tree initialised at inference has
 none); the port then keeps its own values for those keys.
+
+`style_encoder_state_dict(params, n_layers)` does the same for the JAX
+`StyleEncoder` (SimBERT): `convert_bert` / `convert_style_encoder` read
+backwards, HF BERT key names.
 """
 
 from __future__ import annotations
@@ -40,6 +44,9 @@ class _Out(dict):
     def ln(self, key: str, node: Mapping[str, Any]):
         self[f"{key}.weight"] = _t(node["scale"])
         self[f"{key}.bias"] = _t(node["bias"])
+
+    def emb(self, key: str, node: Mapping[str, Any]):
+        self[f"{key}.weight"] = _t(node["embedding"])
 
     def wn(self, key: str, node: Mapping[str, Any]):
         self[f"{key}.weight_g"] = _t(node["g"])
@@ -72,8 +79,8 @@ def prompt_tts_state_dict(am: Mapping[str, Any], a: AcousticConfig,
     """JAX PromptTTS params -> port PromptTTS state dict (keys under prefix)."""
     out = _Out()
     p = prefix
-    out[f"{p}src_word_emb.weight"] = _t(am["src_word_emb"]["embedding"])
-    out[f"{p}spk_tokenizer.weight"] = _t(am["spk_tokenizer"]["embedding"])
+    out.emb(f"{p}src_word_emb", am["src_word_emb"])
+    out.emb(f"{p}spk_tokenizer", am["spk_tokenizer"])
     out.dense(f"{p}embed_projection1", am["embed_projection1"])
     _encoder(out, f"{p}encoder", am["encoder"], a.encoder_n_layers)
     _encoder(out, f"{p}decoder", am["decoder"], a.decoder_n_layers)
@@ -118,3 +125,32 @@ def jax_to_torch_state_dict(params: Mapping[str, Any],
         **prompt_tts_state_dict(params["am"], cfg.am, "am."),
         **hifigan_state_dict(params["generator"], cfg.vocoder, "generator."),
     }
+
+
+def style_encoder_state_dict(params: Mapping[str, Any],
+                             n_layers: int = 12) -> Dict[str, torch.Tensor]:
+    """JAX StyleEncoder params (`{'params': {'bert': ..., '*_clf': ...}}` or
+    the inner dict) -> port `StyleEncoder` state dict."""
+    if "params" in params:
+        params = params["params"]
+    bert = params["bert"]
+    out = _Out()
+    e = "bert.embeddings"
+    out.emb(f"{e}.word_embeddings", bert["word_embeddings"])
+    out.emb(f"{e}.position_embeddings", bert["position_embeddings"])
+    out.emb(f"{e}.token_type_embeddings", bert["token_type_embeddings"])
+    out.ln(f"{e}.LayerNorm", bert["embeddings_ln"])
+    for i in range(n_layers):
+        lt, lk = bert[f"layer_{i}"], f"bert.encoder.layer.{i}"
+        for name in ("query", "key", "value"):
+            out.dense(f"{lk}.attention.self.{name}", lt["attention"][name])
+        out.dense(f"{lk}.attention.output.dense", lt["attention_output"])
+        out.ln(f"{lk}.attention.output.LayerNorm", lt["attention_ln"])
+        out.dense(f"{lk}.intermediate.dense", lt["intermediate"])
+        out.dense(f"{lk}.output.dense", lt["output"])
+        out.ln(f"{lk}.output.LayerNorm", lt["output_ln"])
+    out.dense("bert.pooler.dense", bert["pooler"])
+    for head in ("pitch_clf", "speed_clf", "energy_clf", "emotion_clf"):
+        if head in params:
+            out.dense(f"{head}.classifier", params[head])
+    return dict(out)

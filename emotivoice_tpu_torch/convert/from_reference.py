@@ -1,0 +1,65 @@
+"""Reference PyTorch checkpoints -> the port's modules.
+
+The port keeps the reference's parameter names, so a checkpoint needs only
+unwrapping, not conversion (layouts handled: see
+`emotivoice_tpu/convert/from_torch.py`):
+  - ``g_{step:08d}``: {"generator": state_dict}, keys ``am.*`` and
+    ``generator.*`` -> `JETSGenerator`;
+  - ``checkpoint_163431``: {"model": state_dict} with DataParallel
+    ``module.`` prefixes -> `StyleEncoder`.
+Weight-normed convs are accepted under the parametrize naming
+(`parametrizations.weight.original0/1`), the legacy one
+(`weight_g`/`weight_v`) or already folded (`weight`).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping
+
+import torch
+from torch import nn
+
+
+def load_checkpoint(path: str) -> Dict[str, Any]:
+    return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def strip_module_prefix(sd: Mapping[str, Any]) -> Dict[str, Any]:
+    """Remove DataParallel 'module.' prefixes."""
+    return {(k[len("module."):] if k.startswith("module.") else k): v for k, v in sd.items()}
+
+
+def _load(model: nn.Module, sd: Mapping[str, torch.Tensor], what: str) -> nn.Module:
+    # Keys the module does not have (buffers such as HF's `position_ids`)
+    # are ignored; every parameter of the module must be in the checkpoint.
+    missing, _ = model.load_state_dict(sd, strict=False)
+    if missing:
+        raise KeyError(f"{what} checkpoint lacks {sorted(missing)[:8]}"
+                       f"{' ...' if len(missing) > 8 else ''}")
+    return model
+
+
+def load_jets_generator(model: nn.Module, ckpt: Mapping[str, Any]) -> nn.Module:
+    """Load a ``g_*`` checkpoint (or its bare state dict) into a port
+    `JETSGenerator`, in place."""
+    sd = strip_module_prefix(ckpt["generator"] if "generator" in ckpt else ckpt)
+    wanted = model.state_dict().keys()
+    out: Dict[str, torch.Tensor] = {}
+    for k, v in sd.items():
+        k = k.replace(".parametrizations.weight.original0", ".weight_g")
+        k = k.replace(".parametrizations.weight.original1", ".weight_v")
+        if k.endswith(".weight") and k not in wanted and f"{k}_v" in wanted:
+            # folded weight: direction = the weight, gain = its norm
+            out[f"{k}_v"] = v
+            out[f"{k}_g"] = torch.sqrt(torch.sum(v * v, dim=tuple(range(1, v.dim())),
+                                                 keepdim=True))
+        else:
+            out[k] = v
+    return _load(model, out, "generator")
+
+
+def load_style_encoder(model: nn.Module, ckpt: Mapping[str, Any]) -> nn.Module:
+    """Load a style-encoder checkpoint (or its bare state dict) into a port
+    `StyleEncoder`, in place."""
+    sd = strip_module_prefix(ckpt["model"] if "model" in ckpt else ckpt)
+    return _load(model, sd, "style-encoder")

@@ -3,15 +3,16 @@ bucketing, on one device (counterpart of `emotivoice_tpu/serving/engine.py`).
 
 Requests are padded into (batch, text, mel) buckets from fixed ladders, so
 a later slice can capture one program per bucket. Padding rows carry one
-token and speaker 0. The mesh / tensor-parallel branch and background
-warmup are later slices.
+token and speaker 0. The mesh / tensor-parallel branch is a later slice.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import logging
-from typing import List, Optional, Sequence, Tuple, Union
+import threading
+import time
+from typing import Callable, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -56,6 +57,11 @@ class SynthesisEngine:
     `device` defaults to 'cuda' and raises without a card; pass 'cpu' for
     the plain PyTorch path. `dtype` is the compute dtype ('f32' / 'bf16' or
     a torch dtype); parameters stay f32 and the waveform comes back f32.
+
+    `run` is serialized: it holds one lock for the whole model call, so
+    callers on several threads (the batcher's worker, the warmup daemon,
+    a service with batching off) may rely on at most one model call being
+    in progress on this engine at any time.
     """
 
     def __init__(
@@ -86,13 +92,28 @@ class SynthesisEngine:
         # bucket still saturated and the audio really was cut.
         self.saturation_redispatches = 0
         self.saturation_truncations = 0
+        # Traffic-priority handshake for warmup_background: a grid shape must
+        # never queue in front of a live request, so the daemon defers while
+        # requests are in flight or arrived very recently.
+        self._traffic_lock = threading.Lock()
+        self._inflight = 0
+        self._last_traffic = 0.0
+        # Shapes of the background grid that raised. The daemon survives
+        # them, but they are counted and logged, never dropped silently.
+        self.warmup_failures = 0
+        # One model call at a time (see the class docstring): the batcher's
+        # worker and the warmup daemon may both be here, and the kernels'
+        # launch counters (plain `+= 1`) and the allocator's peak are only
+        # exact when calls do not interleave. The card runs them one after
+        # the other anyway.
+        self._run_lock = threading.Lock()
 
     def run(self, tokens, lengths, speaker, style, content, max_frames: int,
             alpha: float) -> Tuple[np.ndarray, np.ndarray]:
         """One padded bucket through the model: numpy in, (wav (B, max_frames
         * hop) f32, n_frames (B,)) numpy out."""
         dev = self.device
-        with torch.inference_mode():
+        with self._run_lock, torch.inference_mode():
             out = self.model(
                 torch.as_tensor(tokens, dtype=torch.long, device=dev),
                 torch.as_tensor(lengths, dtype=torch.long, device=dev),
@@ -107,6 +128,16 @@ class SynthesisEngine:
     def synthesize_batch(self, requests: List[SynthesisRequest]) -> List[SynthesisResult]:
         if not requests:
             return []
+        with self._traffic_lock:
+            self._inflight += 1
+        try:
+            return self._synthesize_batch(requests)
+        finally:
+            with self._traffic_lock:
+                self._inflight -= 1
+                self._last_traffic = time.monotonic()
+
+    def _synthesize_batch(self, requests: List[SynthesisRequest]) -> List[SynthesisResult]:
         cap = self.batch_buckets[-1]
         if len(requests) > cap:  # larger than the biggest bucket: several dispatches
             out: List[SynthesisResult] = []
@@ -179,14 +210,100 @@ class SynthesisEngine:
     def synthesize(self, request: SynthesisRequest) -> SynthesisResult:
         return self.synthesize_batch([request])[0]
 
+    def _run_dummy(self, rows: int, t_text: int, max_frames: int):
+        d = self.cfg.am.bert_embedding
+        self.run(
+            np.zeros((rows, t_text), np.int64), np.ones((rows,), np.int64),
+            np.zeros((rows,), np.int64), np.zeros((rows, d), np.float32),
+            np.zeros((rows, d), np.float32), max_frames, 1.0,
+        )
+
+    def _warm_one(self, b: int, t_text: int, max_frames: int):
+        """Run one (batch, text, mel) bucket on dummy inputs."""
+        self._run_dummy(_bucket(b, self.batch_buckets), t_text, max_frames)
+
+    def warmup_grid(self, batches: Sequence[int] = (1, 2, 4, 8, 16)) -> List[Tuple[int, int, int]]:
+        """The (batch, text, mel) shapes `warmup_background` walks: for every
+        batch x text bucket, the mel bucket `synthesize_batch` would pick at
+        alpha <= 1 plus the next one up (the duration-overflow redispatch
+        target)."""
+        work: List[Tuple[int, int, int]] = []
+        seen = set()
+        for b in batches:
+            for t in self.text_buckets:
+                m = _bucket(int(t * self.frames_per_token), self.mel_buckets)
+                m_next = _bucket(m + 1, self.mel_buckets)
+                for mf in (m, m_next):
+                    key = (_bucket(b, self.batch_buckets), t, mf)
+                    if key not in seen:
+                        seen.add(key)
+                        work.append(key)
+        return work
+
+    def warmup_background(
+        self,
+        batches: Sequence[int] = (1, 2, 4, 8, 16),
+        progress_cb: Optional[Callable[[int, int], None]] = None,
+    ) -> threading.Thread:
+        """Warm the production bucket grid on a daemon thread.
+
+        `warmup()` covers only a handful of shapes. Nothing compiles per
+        shape here, but the first call of a shape still pays cuDNN's
+        algorithm choice and the allocator's growth; this walks
+        `warmup_grid(batches)` in the background while the server is already
+        answering, yielding to live traffic before every shape. A shape that
+        raises does not end the thread: it adds one to `warmup_failures` and
+        is logged with its traceback."""
+        work = self.warmup_grid(batches)
+
+        def run():
+            for i, (b, t, mf) in enumerate(work):
+                self._wait_for_traffic_idle()
+                try:
+                    self._warm_one(b, t, mf)
+                except Exception:
+                    self.warmup_failures += 1
+                    log.exception("background warmup of (batch %d, text %d, mel %d) failed",
+                                  b, t, mf)
+                if progress_cb is not None:
+                    progress_cb(i + 1, len(work))
+
+        th = threading.Thread(target=run, daemon=True, name="engine-warmup")
+        th.start()
+        return th
+
+    def _wait_for_traffic_idle(self, idle_s: float = 0.25):
+        """Block until no request is in flight and none finished within the
+        last `idle_s` seconds: live traffic always outranks a warmup shape."""
+        while True:
+            with self._traffic_lock:
+                busy = self._inflight > 0
+                quiet = time.monotonic() - self._last_traffic
+            if not busy and quiet >= idle_s:
+                return
+            time.sleep(0.05)
+
     def warmup(self, shapes: Optional[List[Tuple[int, int, int]]] = None):
         """Run common (batch, text, mel) buckets once on dummy inputs, so the
-        kernel build and first-call costs are not paid by a user request."""
+        kernel build and first-call costs are not paid by a user request.
+
+        A shape that traffic would pick goes through `synthesize_batch`, so
+        warmup touches the same batch-bucket padding as production; a
+        non-default mel bucket is run directly."""
+        # Includes the production micro-batched bucket (batch 16, the
+        # batcher's max_batch).
         shapes = shapes or [(1, 32, 256), (1, 64, 512), (4, 64, 512), (16, 96, 768)]
         d = self.cfg.am.bert_embedding
         for b, t_text, max_frames in shapes:
-            self.run(
-                np.zeros((b, t_text), np.int64), np.ones((b,), np.int64),
-                np.zeros((b,), np.int64), np.zeros((b, d), np.float32),
-                np.zeros((b, d), np.float32), max_frames, 1.0,
-            )
+            t_bucket = _bucket(t_text, self.text_buckets)
+            est = int(t_bucket * self.frames_per_token)
+            if _bucket(est, self.mel_buckets) != max_frames:
+                self._run_dummy(b, t_text, max_frames)
+            else:
+                req = SynthesisRequest(
+                    phonemes=self.vocab.decode([0]) * t_text,  # pad tokens
+                    speaker_id=0,
+                    style_embedding=np.zeros(d, np.float32),
+                    content_embedding=np.zeros(d, np.float32),
+                )
+                self.synthesize_batch([req] * b)

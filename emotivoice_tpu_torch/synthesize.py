@@ -2,12 +2,15 @@
 `tools/synthesize.py`).
 
 Reads lines of `speaker|prompt|phonemes|content` and writes one int16 wav
-per line. Runs in smoke mode: parameters are random, made from `--seed`,
-and style/content embeddings are zero (checkpoint loading and the style
-encoder are later slices).
+per line.
 
-  python -m emotivoice_tpu_torch.synthesize --test-file lines.txt \
-      --output-dir out/ [--dtype f32|bf16] [--device cuda|cpu]
+  python -m emotivoice_tpu_torch.synthesize --checkpoint <g_ckpt> \
+      --style-encoder <checkpoint_163431> --tokenizer <simbert vocab dir> \
+      --test-file lines.txt --output-dir out/ [--dtype f32|bf16] \
+      [--device cuda|cpu]
+
+Without --checkpoint the parameters are random, made from `--seed`; without
+--style-encoder the style/content embeddings are zero (smoke mode).
 """
 
 from __future__ import annotations
@@ -15,11 +18,12 @@ from __future__ import annotations
 import argparse
 import os
 
-import numpy as np
-
 
 def main(argv=None):
     p = argparse.ArgumentParser()
+    p.add_argument("--checkpoint", default=None, help="reference g_* generator checkpoint")
+    p.add_argument("--style-encoder", default=None, help="reference style-encoder checkpoint")
+    p.add_argument("--tokenizer", default=None, help="simbert tokenizer path")
     p.add_argument("--test-file", required=True)
     p.add_argument("--output-dir", default="outputs/test_audio")
     p.add_argument("--dtype", choices=["f32", "bf16"], default="f32",
@@ -32,18 +36,18 @@ def main(argv=None):
     args = p.parse_args(argv)
 
     from emotivoice_tpu_torch.config import EmotiVoiceConfig
-    from emotivoice_tpu_torch.frontend.tokens import TokenVocab
-    from emotivoice_tpu_torch.models.jets import JETSGenerator, init_random_
     from emotivoice_tpu_torch.serving.engine import SynthesisEngine, SynthesisRequest
+    from emotivoice_tpu_torch.serving.loading import (
+        build_embed_fn,
+        build_generator,
+        config_and_vocab,
+    )
     from emotivoice_tpu_torch.utils.audio_io import write_wav
 
-    vocab = TokenVocab.from_file(args.tokenlist) if args.tokenlist else TokenVocab.default()
-    cfg = EmotiVoiceConfig()
-    cfg = cfg.replace(am=cfg.am.__class__(**{**cfg.am.__dict__, "n_vocab": len(vocab)}))
-    print(f"WARNING: no checkpoint; random parameters from seed {args.seed} (smoke mode)")
-    model = init_random_(JETSGenerator(cfg), args.seed)
+    cfg, vocab = config_and_vocab(EmotiVoiceConfig(), args.tokenlist)
+    model = build_generator(cfg, args.checkpoint, args.seed)
     engine = SynthesisEngine(cfg, model, vocab, dtype=args.dtype, device=args.device)
-    zeros = np.zeros(cfg.am.bert_embedding, np.float32)
+    embed_fn = build_embed_fn(cfg, args.style_encoder, args.tokenizer, engine.device)
 
     requests, names = [], []
     with open(args.test_file, encoding="utf-8") as f:
@@ -51,11 +55,12 @@ def main(argv=None):
             line = line.strip()
             if not line:
                 continue
-            speaker, _prompt, phonemes, _content = line.split("|")
+            speaker, prompt, phonemes, content = line.split("|")
             requests.append(SynthesisRequest(
                 phonemes=phonemes.split(),
                 speaker_id=int(speaker) if speaker.isdigit() else 0,
-                style_embedding=zeros, content_embedding=zeros, alpha=args.alpha,
+                style_embedding=embed_fn(prompt), content_embedding=embed_fn(content),
+                alpha=args.alpha,
             ))
             names.append(f"{i:04d}_{speaker}")
 

@@ -139,3 +139,49 @@ def assert_close_rel(got, want, rtol_of_max: float):
     scale = np.max(np.abs(want))
     assert scale > 1e-3, f"reference output is near zero (max |ref| = {scale})"
     np.testing.assert_allclose(got, want, rtol=0, atol=rtol_of_max * scale)
+
+
+class StandInTokenizer:
+    """A deterministic stand-in for the SimBERT tokenizer, with the HF call
+    signature the embedders use: [CLS], one id per character from a stable
+    hash into [5, vocab_size), [SEP], padded with 0 to `max_length`."""
+
+    CLS, SEP, PAD = 2, 3, 0
+
+    def __init__(self, vocab_size: int):
+        self.vocab_size = vocab_size
+
+    def __call__(self, texts, padding="max_length", truncation=True, max_length=64,
+                 return_tensors="np"):
+        import zlib
+
+        assert padding == "max_length" and truncation and return_tensors == "np"
+        ids = np.full((len(texts), max_length), self.PAD, np.int64)
+        mask = np.zeros((len(texts), max_length), np.int64)
+        for i, text in enumerate(texts):
+            body = [5 + zlib.crc32(ch.encode("utf-8")) % (self.vocab_size - 5)
+                    for ch in text][: max_length - 2]
+            row = [self.CLS] + body + [self.SEP]
+            ids[i, : len(row)] = row
+            mask[i, : len(row)] = 1
+        return {"input_ids": ids, "token_type_ids": np.zeros_like(ids), "attention_mask": mask}
+
+
+def jax_style_params(bert_cfg, seed: int):
+    """JAX StyleEncoder variables with seeded numpy values."""
+    from emotivoice_tpu.models.bert import StyleEncoder
+
+    shapes = jax.eval_shape(
+        lambda: StyleEncoder(bert_cfg).init(jax.random.PRNGKey(0), np.zeros((1, 4), np.int32))
+    )
+    return random_params(shapes, seed)
+
+
+def port_style_encoder(bert_cfg, params):
+    """Port StyleEncoder on the CPU loaded from a JAX params tree."""
+    from emotivoice_tpu_torch.convert.from_jax import style_encoder_state_dict
+    from emotivoice_tpu_torch.models.bert import StyleEncoder
+
+    model = StyleEncoder(bert_cfg)
+    model.load_state_dict(style_encoder_state_dict(params, bert_cfg.num_layers))
+    return model.eval()
