@@ -7,13 +7,17 @@ Phases (any failure exits non-zero and prints no result line):
   1. device   - require a CUDA card; print its name and power limit;
   2. build    - compile the port's kernels from emotivoice_tpu_torch/csrc
                 with nvcc for sm_90a; count the tensor-core instructions
-                (HMMA / HGMMA) of each kernel instantiation in the SASS
-                (cuobjdump) and fail if a bf16 one has none;
+                (HMMA / HGMMA; TF32 products show as HMMA.1688.F32.TF32) of
+                each kernel instantiation in the SASS (cuobjdump) and fail
+                if one, bf16 or f32, has none;
   3. kernels  - each kernel against its plain PyTorch version on the card,
                 at the main path's shapes (bench bucket: batch 16, 384 mel
                 frames) and at a ragged T, in f32 (TF32 off) and bf16;
-                times of kernel, plain version and the cuDNN convolutions,
-                share of the bound and factor against cuDNN. Phases 4 and 7
+                times of kernel, plain version and the cuDNN convolutions
+                (TF32 off: the same function; for f32 also with cuDNN's TF32
+                on, a less exact function, for context), share of the bound
+                and factor against cuDNN. The f32 bound is that of a 3xTF32
+                split on the tensor cores, 3 * FLOP / 495 TFLOP/s. Phases 4 and 7
                 record every (batch, T, C) their path hands to a kernel and
                 hold both kernels against their plain versions at each of
                 those shapes too, with the model's own weights;
@@ -74,7 +78,9 @@ sys.path.insert(0, ROOT)
 SEED = 0
 BENCH_B, BENCH_T_TEXT, BENCH_FRAMES = 16, 96, 384
 PEAK_BF16 = 989e12  # dense bf16 tensor-core FLOP/s, H100 SXM
-PEAK_F32 = 67e12  # f32 FLOP/s outside the tensor cores
+PEAK_TF32 = 495e12  # dense TF32 tensor-core FLOP/s
+TF32_TERMS = 3  # TF32 products per f32-accurate product (3xTF32 split): the f32 kernels' bound
+PEAK_F32_CUDA_CORES = 67e12  # f32 FLOP/s outside the tensor cores: the f32 bound of earlier runs
 PEAK_BYTES = 3.35e12  # HBM3 bytes/s
 TOL_F32 = 2e-4  # max |kernel - plain| / max |plain|, f32 with TF32 off
 TOL_BF16 = 2e-2  # the same in bf16 (roundings at other places)
@@ -180,9 +186,10 @@ def phase_build() -> None:
         log(f"[build] SASS {name}<C={c}, {dname}>: {n} HMMA/HGMMA instructions")
     report["sass_mma"] = {f"{k[0]}/{k[1]}/{k[2]}": v for k, v in sorted(counts.items())}
     for name in ("residual_unit_kernel", "mrf_stage_kernel"):
-        bf16 = {c: n for (k, c, dname), n in counts.items() if k == name and dname == "bf16"}
-        if not bf16 or not all(bf16.values()):
-            fail(f"{name}: bf16 instantiation without tensor-core instructions: {bf16}")
+        for dname in ("bf16", "f32"):
+            found = {c: n for (k, c, dn), n in counts.items() if k == name and dn == dname}
+            if not found or not all(found.values()):
+                fail(f"{name}: {dname} instantiation without tensor-core instructions: {found}")
 
 
 # ---------------------------------------------------------------------------
@@ -207,6 +214,30 @@ def _rel_err(got, want) -> float:
     return float((got.float() - want.float()).abs().max() / want.float().abs().max())
 
 
+def _timed_cudnn(fn, dtype):
+    """Device ms of the cuDNN convolutions `fn` runs with TF32 off (the same
+    function as the kernel: the yardstick) and, in f32, also with cuDNN's
+    TF32 on (one TF32 product per f32 product: a less exact function)."""
+    lib_ms = timed(fn)
+    if dtype != torch.float32:
+        return lib_ms, None
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        return lib_ms, timed(fn)
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+
+
+def _f32_context(r) -> str:
+    """For an f32 row: its bound on the f32 CUDA cores, which runs before the
+    3xTF32 design printed as bound_ms, and cuDNN with TF32 on (a different
+    function)."""
+    if not r.get("bound_cuda_cores_ms"):
+        return ""
+    return (f" bound_cuda_cores_ms={r['bound_cuda_cores_ms']:.4f} "
+            f"cudnn_tf32_on_ms={r['library_tf32_ms']:.3f} (a different function)")
+
+
 def phase_kernels(dev) -> dict:
     from emotivoice_tpu_torch.ops.cuda.mrf_stage import fused_mrf_stage, mrf_stage_plain
     from emotivoice_tpu_torch.ops.cuda.resblock import fused_residual_unit, residual_unit_plain
@@ -219,7 +250,7 @@ def phase_kernels(dev) -> dict:
     for dtype, tol in ((torch.float32, TOL_F32), (torch.bfloat16, TOL_BF16)):
         dname = "f32" if dtype == torch.float32 else "bf16"
         item = 2 if dtype == torch.bfloat16 else 4
-        peak = PEAK_BF16 if dtype == torch.bfloat16 else PEAK_F32
+        peak = PEAK_BF16 if dtype == torch.bfloat16 else PEAK_TF32 / TF32_TERMS
         # kernel 1: stages 1-2 of the bench bucket, every (k, d) of the MRF
         for c, t in ((256, 8 * t_mel), (128, 64 * t_mel)):
             for k, dils in zip(V1_KS, V1_DS):
@@ -244,13 +275,14 @@ def phase_kernels(dev) -> dict:
                     xn = x.transpose(1, 2).contiguous()
                     ms = timed(lambda: fused_residual_unit(x, *w, k, d))
                     plain_ms = timed(lambda: residual_unit_plain(x, *w, k, d))
-                    lib_ms = timed(lambda: (_conv_ncw(xn, w1t, w[1], d),
-                                            _conv_ncw(xn, w2t, w[3], 1)))
+                    lib_ms, lib_tf32_ms = _timed_cudnn(
+                        lambda: (_conv_ncw(xn, w1t, w[1], d), _conv_ncw(xn, w2t, w[3], 1)), dtype)
                     flop = 4 * k * c * c * BENCH_B * t
                     nbytes = item * (2 * BENCH_B * t * c + 2 * k * c * c + 2 * c)
                     rows.append(dict(kernel="fused_residual_unit", dtype=dname, C=c, T=t,
                                      k=k, d=d, err=err, ms=ms, plain_ms=plain_ms,
-                                     library_ms=lib_ms, flop=flop, bytes=nbytes))
+                                     library_ms=lib_ms, library_tf32_ms=lib_tf32_ms,
+                                     flop=flop, bytes=nbytes))
         # kernel 2: stages 3-4 of the bench bucket, whole MRF
         for c, t in ((64, 128 * t_mel), (32, 256 * t_mel)):
             ws = [[_unit_weights(gen, k, c, dtype, dev) for _ in dils]
@@ -278,24 +310,31 @@ def phase_kernels(dev) -> dict:
 
             ms = timed(lambda: fused_mrf_stage(x, ws, V1_KS, V1_DS))
             plain_ms = timed(lambda: mrf_stage_plain(x, ws, V1_KS, V1_DS))
-            lib_ms = timed(lib_stage)
+            lib_ms, lib_tf32_ms = _timed_cudnn(lib_stage, dtype)
             flop = sum(4 * k * c * c * len(dils) for k, dils in zip(V1_KS, V1_DS)) * BENCH_B * t
             nbytes = item * (2 * BENCH_B * t * c
                              + sum(2 * k * c * c + 2 * c for k, dils in zip(V1_KS, V1_DS)
                                    for _ in dils))
             rows.append(dict(kernel="fused_mrf_stage", dtype=dname, C=c, T=t, k=None, d=None,
                              err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                             flop=flop, bytes=nbytes))
+                             library_tf32_ms=lib_tf32_ms, flop=flop, bytes=nbytes))
         for r in rows:
             if r["dtype"] == dname:
                 r["bound_ms"] = 1e3 * max(r["flop"] / peak, r["bytes"] / PEAK_BYTES)
                 r["bound_by"] = "operations" if r["flop"] / peak >= r["bytes"] / PEAK_BYTES else "bytes"
+                r["bound_cuda_cores_ms"] = (
+                    1e3 * max(r["flop"] / PEAK_F32_CUDA_CORES, r["bytes"] / PEAK_BYTES)
+                    if dtype == torch.float32 else None)
     for r in rows:
         key = (r["kernel"], r["dtype"])
         t = totals.setdefault(key, dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
-                                        flop=0, bytes=0, calls=0, err=0.0))
+                                        flop=0, bytes=0, calls=0, err=0.0, library_tf32_ms=0.0,
+                                        bound_cuda_cores_ms=0.0))
         for f in ("ms", "plain_ms", "library_ms", "bound_ms", "flop", "bytes"):
             t[f] += r[f]
+        if r["dtype"] == "f32":
+            t["library_tf32_ms"] += r["library_tf32_ms"]
+            t["bound_cuda_cores_ms"] += r["bound_cuda_cores_ms"]
         t["calls"] += 1
         t["err"] = max(t["err"], r["err"])
         log(f"[kernels] {r['kernel']:<19} {r['dtype']:<4} C={r['C']:<3} T={r['T']:<6} "
@@ -303,13 +342,14 @@ def phase_kernels(dev) -> dict:
             f"plain_ms={r['plain_ms']:.3f} cudnn_ms={r['library_ms']:.3f} "
             f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) "
             f"bound_share={r['bound_ms'] / r['ms']:.4f} x_cudnn={r['ms'] / r['library_ms']:.2f} "
-            f"TFLOP/s={r['flop'] / r['ms'] / 1e9:.1f}")
+            f"TFLOP/s={r['flop'] / r['ms'] / 1e9:.1f}" + _f32_context(r))
     for (name, dname), t in totals.items():
         log(f"[kernels] per generator call at the bench bucket: {name} {dname} "
             f"{t['calls']} launches ms={t['ms']:.2f} plain_ms={t['plain_ms']:.2f} "
             f"cudnn_ms={t['library_ms']:.2f} bound_ms={t['bound_ms']:.3f} "
             f"bound_share={t['bound_ms'] / t['ms']:.4f} x_cudnn={t['ms'] / t['library_ms']:.2f} "
-            f"TFLOP/s={t['flop'] / t['ms'] / 1e9:.1f} max_rel_err={t['err']:.2e}")
+            f"TFLOP/s={t['flop'] / t['ms'] / 1e9:.1f} max_rel_err={t['err']:.2e}"
+            + (_f32_context(t) if dname == "f32" else ""))
     report["kernel_rows"] = rows
     report["kernel_totals"] = {f"{k[0]}/{k[1]}": v for k, v in totals.items()}
     return dict(totals=totals, worst=worst)
@@ -342,6 +382,7 @@ def check_path_kernels(dev, model, shapes, tag: str) -> dict:
                 for i in range(len(vc.upsample_rates))}
     gen = torch.Generator().manual_seed(SEED + 3)
     worst_abs = {"fused_residual_unit": 0.0, "fused_mrf_stage": 0.0}
+    worst_rel = dict(worst_abs)
     rows = []
     for b, t, c, dtype in sorted(shapes, key=lambda s: (-s[2], s[0], s[1], str(s[3]))):
         tol = TOL_BF16 if dtype == torch.bfloat16 else TOL_F32
@@ -369,6 +410,7 @@ def check_path_kernels(dev, model, shapes, tag: str) -> dict:
         if not np.isfinite(err) or err > tol:
             fail(f"[{tag}] {name} at the path's shape B={b} T={t} C={c} {dname}: "
                  f"rel err {err:.3g} > {tol}")
+        worst_rel[name] = max(worst_rel[name], err)
         rows.append(dict(kernel=name, B=b, T=t, C=c, dtype=dname, launches=len(pairs), err=err))
     for c in sorted({r["C"] for r in rows}, reverse=True):
         sel = [r for r in rows if r["C"] == c]
@@ -379,7 +421,7 @@ def check_path_kernels(dev, model, shapes, tag: str) -> dict:
     if not rows:
         fail(f"[{tag}] the path handed no tensor to a kernel")
     report.setdefault("path_kernel_checks", {})[tag] = rows
-    return dict(worst=worst_abs,
+    return dict(worst=worst_abs, worst_rel=worst_rel,
                 shapes={name: sum(r["kernel"] == name for r in rows) for name in worst_abs})
 
 
@@ -1115,7 +1157,14 @@ def main() -> None:
             dtype="bf16", shape="bench bucket, one generator call",
             ms_f32=t32["ms"], plain_ms_f32=t32["plain_ms"], library_ms_f32=t32["library_ms"],
             bound_ms_f32=t32["bound_ms"], bound_share_f32=t32["bound_ms"] / t32["ms"],
-            x_cudnn_f32=t32["ms"] / t32["library_ms"],
+            bound_by_f32=("operations" if TF32_TERMS * t32["flop"] / PEAK_TF32
+                          >= t32["bytes"] / PEAK_BYTES else "bytes"),
+            bound_cuda_cores_ms_f32=t32["bound_cuda_cores_ms"],
+            x_cudnn_f32=t32["ms"] / t32["library_ms"], tflops_f32=t32["flop"] / t32["ms"] / 1e9,
+            library_tf32_on_ms_f32=t32["library_tf32_ms"],
+            # f32 on both driven paths: worst |kernel - plain| / max |plain|
+            max_rel_err_f32=max(t32["err"], main_out["path"]["worst_rel"][name],
+                                serve_out["path"]["worst_rel"][name]),
         ))
     report["kernels"] = kernels
     if args.report:

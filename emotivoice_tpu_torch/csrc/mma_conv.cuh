@@ -1,8 +1,7 @@
 // Tensor-core conv core of the HiFi-GAN MRF kernels' bf16 instantiation
 // (resblock.cu, mrf_stage.cu), for Hopper (sm_90a).
 //
-// Replaces, inside both kernels, the f32 CUDA-core loop conv_rows()
-// (conv_tile.cuh) that the TPU kernels' MXU matmuls had become:
+// Takes the place of the TPU kernels' MXU matmuls:
 // emotivoice_tpu/ops/pallas/resblock.py (_residual_unit_kernel) and
 // emotivoice_tpu/ops/pallas/packed_stage.py (_mrf_stage_kernel) each run a
 // dilated conv as K shifted (rows x C_in) @ (C_in x C_out) products.
@@ -41,76 +40,21 @@
 // The output rows are covered in passes of kPassRows (all warps' m tiles);
 // the weights stream from L2 once per pass.
 //
-// Storage is bf16 only. The f32 instantiation keeps conv_rows(): the tensor
-// cores take f32 only as TF32 (10-bit mantissa), which would break the f32
-// path's 2e-4 agreement with its plain version; a 3xTF32 split is queued.
+// Storage is bf16 only. The f32 instantiation has a core of the same shape
+// and contract in mma_conv_f32.cuh: one TF32 product (10-bit mantissa) would
+// break the f32 path's 2e-4 agreement with its plain version, a 3xTF32 split
+// does not.
 
 #pragma once
-
-#include <cuda_bf16.h>
-#include <stdint.h>
-
-#include <type_traits>
 
 #include "conv_tile.cuh"
 
 namespace evt {
 
-using bf16 = __nv_bfloat16;
-using bf16x2 = __nv_bfloat162;
-
-// Tiling per channel count: kWN warps across C_out, each with kNT n8 tiles
-// (kWN * kNT * 8 == C), and kMT m16 tiles per warp; the weight ring has
-// kStages stages of kKC rows of W flattened to (K*C_in, C_out).
-template <int C> struct MmaCfg;
-template <> struct MmaCfg<32> { static constexpr int kWN = 1, kNT = 4, kMT = 8, kKC = 128, kStages = 2; };
-template <> struct MmaCfg<64> { static constexpr int kWN = 1, kNT = 8, kMT = 4, kKC = 128, kStages = 2; };
-template <> struct MmaCfg<128> { static constexpr int kWN = 2, kNT = 8, kMT = 4, kKC = 128, kStages = 2; };
-template <> struct MmaCfg<256> { static constexpr int kWN = 4, kNT = 8, kMT = 4, kKC = 64, kStages = 2; };
-
-template <int C> struct MmaTile : MmaCfg<C> {
-  static_assert(MmaCfg<C>::kWN * MmaCfg<C>::kNT * 8 == C, "warps must tile C_out");
-  static_assert(MmaCfg<C>::kNT % 2 == 0, "B fragments load in n8 pairs");
-  static_assert(MmaCfg<C>::kKC % 16 == 0 && MmaCfg<C>::kStages >= 2, "ring of k16 steps");
-  static constexpr int kWM = kWarps / MmaCfg<C>::kWN;
-  static constexpr int kPassRows = kWM * MmaCfg<C>::kMT * 16;
-  static constexpr int kRingElems = MmaCfg<C>::kStages * MmaCfg<C>::kKC * C;
-};
-
-// Index of the 16-byte chunk holding channels [8*ch, 8*ch + 8) of row r in a
-// [rows][C] bf16 buffer. XOR-swizzled so that any 8 consecutive rows at one
-// chunk fall in 8 different bank groups.
-template <int C> __device__ __forceinline__ int chunk_at(int r, int ch) {
-  constexpr int kChunks = C / 8;
-  const int sw = kChunks >= 8 ? (r & 7) : ((r >> 1) & (kChunks - 1));
-  return r * kChunks + (ch ^ sw);
-}
-
-// Element index of (row r, channel c) in such a buffer.
-template <int C> __device__ __forceinline__ int elem_at(int r, int c) {
-  return chunk_at<C>(r, c >> 3) * 8 + (c & 7);
-}
-
-// The pair of bf16 values at p (4-byte aligned).
-__device__ __forceinline__ bf16x2& pair_at(bf16* p) { return *reinterpret_cast<bf16x2*>(p); }
-
-// lrelu of two bf16 values as JAX rounds max(v, v * 0.1) in bf16: the
-// slope is bf16(0.1), the product is rounded once. bf16 arithmetic on the
-// card (add.bf16x2, mul.bf16x2) rounds the exact result once, as the CPU's
-// f32 arithmetic on bf16 operands followed by one rounding does.
-__device__ __forceinline__ bf16x2 lrelu2(bf16x2 v) {
-  return __hmax2(v, __hmul2(v, __float2bfloat162_rn(kSlope)));
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
+template <> struct MmaCfg<32, bf16> { static constexpr int kWN = 1, kNT = 4, kMT = 8, kKC = 128, kStages = 2; };
+template <> struct MmaCfg<64, bf16> { static constexpr int kWN = 1, kNT = 8, kMT = 4, kKC = 128, kStages = 2; };
+template <> struct MmaCfg<128, bf16> { static constexpr int kWN = 2, kNT = 8, kMT = 4, kKC = 128, kStages = 2; };
+template <> struct MmaCfg<256, bf16> { static constexpr int kWN = 4, kNT = 8, kMT = 4, kKC = 64, kStages = 2; };
 
 __device__ __forceinline__ void ldsm_x4_trans(uint32_t& r0, uint32_t& r1, uint32_t& r2,
                                               uint32_t& r3, uint32_t addr) {
@@ -128,54 +72,9 @@ __device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N> __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
 __device__ __forceinline__ uint32_t lrelu_bf16x2(uint32_t v) {
   bf16x2 a = lrelu2(*reinterpret_cast<bf16x2*>(&v));
   return *reinterpret_cast<uint32_t*>(&a);
-}
-
-// Start copying global rows [g0, g0 + n) of one batch row into rows
-// [row0, row0 + n) of a swizzled bf16 tile with cp.async, as one commit
-// group; rows outside [0, T) are set to zero. The rows are there after a
-// cp_async_wait that covers the group and a barrier.
-template <int C>
-__device__ void load_rows_bf16(bf16* dst, int row0, const bf16* __restrict__ xb, int g0, int n,
-                               int T_len) {
-  constexpr int kChunks = C / 8;
-  for (int i = threadIdx.x; i < n * kChunks; i += kThreads) {
-    const int r = i / kChunks, ch = i % kChunks;
-    const int g = g0 + r;
-    bf16* p = dst + 8 * chunk_at<C>(row0 + r, ch);
-    if (g >= 0 && g < T_len)
-      cp_async16(smem_u32(p), xb + (size_t)g * C + ch * 8);
-    else
-      *reinterpret_cast<uint4*>(p) = make_uint4(0u, 0u, 0u, 0u);
-  }
-  cp_async_commit();
-}
-
-// f(std::integral_constant<int, n>{}) for a runtime n in [0, N]: lets a loop
-// over n m16 tiles unroll without a branch per tile.
-template <int N, typename F> __device__ __forceinline__ void with_count(int n, F&& f) {
-  if constexpr (N == 0) {
-    f(std::integral_constant<int, 0>{});
-  } else {
-    if (n == N)
-      f(std::integral_constant<int, N>{});
-    else
-      with_count<N - 1>(n, f);
-  }
 }
 
 // Copy weight rows [row0, row0 + rows) of W, flattened to (K*C_in, C_out),
@@ -187,13 +86,13 @@ template <int C>
 __device__ __forceinline__ void load_w_chunk(bf16* stage, const bf16* __restrict__ W, int row0,
                                              int rows) {
   constexpr int kChunks = C / 8;
-  constexpr int KC = MmaCfg<C>::kKC;
+  constexpr int KC = MmaCfg<C, bf16>::kKC;
   const uint32_t base = smem_u32(stage);
   if (rows == KC) {
     constexpr int kStride = kThreads / kChunks;
     static_assert(kStride % 8 == 0 && KC % kStride == 0, "copies at a fixed swizzle");
     const int r = threadIdx.x / kChunks, ch = threadIdx.x % kChunks;
-    const uint32_t dst = base + 16 * chunk_at<C>(r, ch);
+    const uint32_t dst = base + 16 * chunk_at<C, bf16>(r, ch);
     const bf16* src = W + (size_t)(row0 + r) * C + ch * 8;
 #pragma unroll
     for (int k = 0; k < KC / kStride; ++k)
@@ -202,19 +101,9 @@ __device__ __forceinline__ void load_w_chunk(bf16* stage, const bf16* __restrict
   }
   for (int i = threadIdx.x; i < rows * kChunks; i += kThreads) {
     const int r = i / kChunks, ch = i % kChunks;
-    cp_async16(base + 16 * chunk_at<C>(r, ch), W + (size_t)(row0 + r) * C + ch * 8);
+    cp_async16(base + 16 * chunk_at<C, bf16>(r, ch), W + (size_t)(row0 + r) * C + ch * 8);
   }
 }
-
-// The weight ring of a block: kStages stages of kKC x C bf16
-// (MmaTile<C>::kRingElems). The convs a block runs stream through it without
-// a gap: while one conv multiplies its last chunks, the first kStages-1
-// chunks of the next one are already in flight.
-struct WeightRing {
-  bf16* stages;
-  int head;     // stage of the next chunk to consume
-  bool primed;  // the next conv's first kStages-1 chunks are in flight
-};
 
 // out[r][co] = sum_{kk<K} sum_{ci<C} act(in[in_row0 + r + kk*d][ci]) * W[kk][ci][co]
 // for r in [0, n_out); act is lrelu when LRELU_IN, else the identity. `in`
@@ -227,9 +116,10 @@ struct WeightRing {
 // write visible.
 template <int C, bool LRELU_IN, typename Epi>
 __device__ void mma_conv(const bf16* in, int in_row0, int n_out, const bf16* __restrict__ W,
-                         const bf16* __restrict__ bias, int K, int d, WeightRing& ring,
+                         const bf16* __restrict__ bias, int K, int d, WeightRing<bf16>& ring,
                          const bf16* __restrict__ W_next, int K_next, Epi epi) {
-  using Cfg = MmaTile<C>;
+  using Cfg = MmaTile<C, bf16>;
+  static_assert(Cfg::kNT % 2 == 0, "B fragments load in n8 pairs");
   constexpr int MT = Cfg::kMT, NT = Cfg::kNT, WM = Cfg::kWM, KC = Cfg::kKC;
   constexpr int S = Cfg::kStages;
   const int lane = threadIdx.x & 31;
@@ -267,7 +157,7 @@ __device__ void mma_conv(const bf16* in, int in_row0, int n_out, const bf16* __r
   uint32_t b_off[NT / 2];
 #pragma unroll
   for (int p = 0; p < NT / 2; ++p)
-    b_off[p] = 16 * chunk_at<C>(lane & 15, wn * NT + 2 * p + (lane >> 4));
+    b_off[p] = 16 * chunk_at<C, bf16>(lane & 15, wn * NT + 2 * p + (lane >> 4));
 
   int j = 0;
   for (int pass = 0; pass < n_pass; ++pass) {
@@ -313,7 +203,7 @@ __device__ void mma_conv(const bf16* in, int in_row0, int n_out, const bf16* __r
 #pragma unroll
           for (int i = 0; i < NA; ++i) {
             uint32_t a[4];
-            ldsm_x4(a, in_base + 16 * chunk_at<C>(arow[i] + tap * d, ch + (lane >> 4)));
+            ldsm_x4(a, in_base + 16 * chunk_at<C, bf16>(arow[i] + tap * d, ch + (lane >> 4)));
             if (LRELU_IN) {
 #pragma unroll
               for (int q = 0; q < 4; ++q) a[q] = lrelu_bf16x2(a[q]);

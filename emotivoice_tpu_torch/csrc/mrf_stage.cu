@@ -25,23 +25,26 @@
 // accumulator in shared memory; the tile is written to device memory once.
 // The 18 intermediates never leave the SM.
 //
-// bf16: every conv runs on the tensor cores through mma_conv() (mma_conv.cuh:
-// mma.sync m16n8k16, ldmatrix from swizzled bf16 tiles, weights through a
-// 2-stage cp.async ring of 128 rows of W, two taps at C=64 and four at C=32,
-// since a unit's weights, 180 KB at k=11 C=64, do not fit beside the tile).
-// The ring streams on from each conv into the next, across units and
-// chains. The chain activation and intermediate are bf16 in shared memory,
-// so the tile is 320 rows at C=64 and 768 at C=32 (the k=11 chain's first
-// conv covers 1.34x / 1.14x the tile's rows).
+// Every conv runs on the tensor cores through mma_conv(): ldmatrix from
+// swizzled tiles of the chain activation and of the intermediate in shared
+// memory, weights through a 2-stage cp.async ring (a unit's weights, 180 KB
+// in bf16 at k=11 C=64, do not fit beside the tile). The ring streams on from
+// each conv into the next, across units and chains.
 //
-// f32: the CUDA-core loop conv_rows() (conv_tile.cuh), one f32 FMA per
-// product; the tensor cores take f32 only as TF32, whose 10-bit mantissa
-// would break the f32 path's 2e-4 agreement with its plain version.
-
-#include <type_traits>
+// bf16 (mma_conv.cuh): mma.sync m16n8k16, ring stages of 128 rows of W (two
+// taps at C=64, four at C=32). The tile is 320 rows at C=64 and 768 at C=32
+// (the k=11 chain's first conv covers 1.34x / 1.14x the tile's rows).
+//
+// f32 (mma_conv_f32.cuh): mma.sync m16n8k8 on TF32 heads and tails, three
+// products per f32 product (3xTF32), which keeps the f32 path's 2e-4
+// agreement with its plain version where one TF32 product (10-bit mantissa)
+// would break it. Ring stages of 32 (C=64) or 64 (C=32) rows; the tile is
+// 192 rows at C=64 and 448 at C=32, and each conv is one pass of the core's
+// rows (384 / 640), so the weights stream once per conv.
 
 #include "conv_tile.cuh"
 #include "mma_conv.cuh"
+#include "mma_conv_f32.cuh"
 
 namespace evt {
 
@@ -65,88 +68,25 @@ __host__ __device__ inline int chain_halo(const StageArgs& a, int j) {
   return h;
 }
 
-template <int C>
-__device__ __forceinline__ void stage_cuda_cores(const float* __restrict__ x,
-                                                 float* __restrict__ y, const StageArgs& a,
-                                                 int T_len, int tile, int halo) {
-  using T = float;
+template <int C, typename T>
+__global__ void __launch_bounds__(kThreads)
+mrf_stage_kernel(const T* __restrict__ x, T* __restrict__ y, const StageArgs a,
+                 int T_len, int tile, int halo) {
+  using Pair = typename PairOf<T>::type;
+  constexpr int P = Chunk<T>::kElems;
+  constexpr int kChunks = C / P;
   extern __shared__ float smem[];
   const int n_x = tile + 2 * halo;
-  float* xs = smem;              // chain activation, global row t0 - halo + i
-  float* mid = xs + n_x * C;     // lrelu(conv1 + b1), same row indexing
-  float* acc = mid + n_x * C;    // sum of chain outputs, tile rows
-  float* wsm = acc + tile * C;   // weight chunk
+  T* xs = reinterpret_cast<T*>(smem);  // chain activation, global row t0 - halo + i
+  T* mid = xs + n_x * C;               // lrelu(conv1 + b1), same row indexing
+  float* acc = reinterpret_cast<float*>(mid + n_x * C);  // sum of chain outputs, [tile][C]
+  WeightRing<T> ring{reinterpret_cast<T*>(acc + tile * C), 0, false};  // kRingElems
 
   const int b = blockIdx.y;
   const int t0 = blockIdx.x * tile;
   const int g_base = t0 - halo;  // global row of xs[0] and mid[0]
   const T* xb = x + (size_t)b * T_len * C;
   T* yb = y + (size_t)b * T_len * C;
-
-  for (int i = threadIdx.x; i < tile * C; i += kThreads) acc[i] = 0.f;
-
-  for (int j = 0; j < a.n_chains; ++j) {
-    const int K = a.k[j];
-    const int hj = chain_halo(a, j);
-    int lo = halo - hj;           // first live row of the chain in xs
-    int ext = tile + 2 * hj;      // live rows
-    __syncthreads();              // previous chain's accumulate has finished
-    load_rows<C>(xs + lo * C, xb, g_base + lo, ext, T_len);
-    for (int u = 0; u < a.n_units[j]; ++u) {
-      const int d = a.d[j][u];
-      const int h1 = (K - 1) / 2 * d, h2 = (K - 1) / 2;
-      const T* w1 = (const T*)a.w1[j][u];
-      const T* b1 = (const T*)a.b1[j][u];
-      const T* w2 = (const T*)a.w2[j][u];
-      const T* b2 = (const T*)a.b2[j][u];
-      const int m0 = lo + h1;     // first conv1 output row
-      conv_rows<C, true>(xs + lo * C, ext - 2 * h1, w1, K, d, wsm,
-                         [&](int m, int co, float s) {
-        const int row = m0 + m;
-        const int g = g_base + row;
-        const float v = round_to<T>(s + to_f(b1[co]));
-        mid[row * C + co] = (g >= 0 && g < T_len) ? lrelu(v) : 0.f;
-      });
-      const int r0 = m0 + h2;     // first conv2 output row
-      conv_rows<C, false>(mid + m0 * C, ext - 2 * h1 - 2 * h2, w2, K, 1, wsm,
-                          [&](int r, int co, float s) {
-        const int row = r0 + r;
-        const int g = g_base + row;
-        const float v = round_to<T>(s + to_f(b2[co]));
-        const float nx = round_to<T>(xs[row * C + co] + v);
-        xs[row * C + co] = (g >= 0 && g < T_len) ? nx : 0.f;
-      });
-      lo += h1 + h2;
-      ext -= 2 * (h1 + h2);
-    }
-    // lo == halo and ext == tile here: the chain output is the tile.
-    for (int i = threadIdx.x; i < tile * C; i += kThreads) acc[i] += xs[halo * C + i];
-  }
-  __syncthreads();
-  const float inv = 1.f / (float)a.n_chains;
-  for (int i = threadIdx.x; i < tile * C; i += kThreads) {
-    const int g = t0 + i / C;
-    if (g < T_len) yb[(size_t)t0 * C + i] = from_f<T>(acc[i] * inv);
-  }
-}
-
-template <int C>
-__device__ __forceinline__ void stage_tensor_cores(const bf16* __restrict__ x,
-                                                   bf16* __restrict__ y, const StageArgs& a,
-                                                   int T_len, int tile, int halo) {
-  constexpr int kChunks = C / 8;
-  extern __shared__ float smem[];
-  const int n_x = tile + 2 * halo;
-  bf16* xs = reinterpret_cast<bf16*>(smem);  // chain activation, global row t0 - halo + i
-  bf16* mid = xs + n_x * C;                  // lrelu(conv1 + b1), same row indexing
-  float* acc = reinterpret_cast<float*>(mid + n_x * C);  // sum of chain outputs, [tile][C]
-  WeightRing ring{reinterpret_cast<bf16*>(acc + tile * C), 0, false};  // kRingElems
-
-  const int b = blockIdx.y;
-  const int t0 = blockIdx.x * tile;
-  const int g_base = t0 - halo;  // global row of xs[0] and mid[0]
-  const bf16* xb = x + (size_t)b * T_len * C;
-  bf16* yb = y + (size_t)b * T_len * C;
 
   for (int i = threadIdx.x; i < tile * C / 4; i += kThreads)
     reinterpret_cast<float4*>(acc)[i] = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -157,37 +97,36 @@ __device__ __forceinline__ void stage_tensor_cores(const bf16* __restrict__ x,
     int lo = halo - hj;           // first live row of the chain in xs
     int ext = tile + 2 * hj;      // live rows
     __syncthreads();              // previous chain's accumulate has finished
-    load_rows_bf16<C>(xs, lo, xb, g_base + lo, ext, T_len);
+    load_rows_async<C>(xs, lo, xb, g_base + lo, ext, T_len);
     cp_async_wait<0>();           // x rows (and the primed weight chunks) have landed
     for (int u = 0; u < a.n_units[j]; ++u) {
       const int d = a.d[j][u];
       const int h1 = (K - 1) / 2 * d, h2 = (K - 1) / 2;
-      const bf16* w1 = (const bf16*)a.w1[j][u];
-      const bf16* b1 = (const bf16*)a.b1[j][u];
-      const bf16* w2 = (const bf16*)a.w2[j][u];
-      const bf16* b2 = (const bf16*)a.b2[j][u];
+      const T* w1 = (const T*)a.w1[j][u];
+      const T* b1 = (const T*)a.b1[j][u];
+      const T* w2 = (const T*)a.w2[j][u];
+      const T* b2 = (const T*)a.b2[j][u];
       // the conv after this unit's conv2: the next unit's or chain's conv1
       const bool last_unit = u + 1 == a.n_units[j];
       const bool last_chain = j + 1 == a.n_chains;
-      const bf16* w_next = (const bf16*)(!last_unit   ? a.w1[j][u + 1]
-                                         : !last_chain ? a.w1[j + 1][0]
-                                                       : nullptr);
+      const T* w_next = (const T*)(!last_unit   ? a.w1[j][u + 1]
+                                   : !last_chain ? a.w1[j + 1][0]
+                                                 : nullptr);
       const int k_next = !last_unit ? K : !last_chain ? a.k[j + 1] : 0;
       const int m0 = lo + h1;     // first conv1 output row
       mma_conv<C, true>(xs, lo, ext - 2 * h1, w1, b1, K, d, ring, w2, K,
-                        [&](int m, int co, bf16x2 v) {
+                        [&](int m, int co, Pair v) {
         const int row = m0 + m;
         const int g = g_base + row;
-        pair_at(mid + elem_at<C>(row, co)) =
-            (g >= 0 && g < T_len) ? lrelu2(v) : __float2bfloat162_rn(0.f);
+        pair_at(mid + elem_at<C, T>(row, co)) = (g >= 0 && g < T_len) ? lrelu2(v) : zero2<T>();
       });
       const int r0 = m0 + h2;     // first conv2 output row
       mma_conv<C, false>(mid, m0, ext - 2 * h1 - 2 * h2, w2, b2, K, 1, ring, w_next, k_next,
-                         [&](int r, int co, bf16x2 v) {
+                         [&](int r, int co, Pair v) {
         const int row = r0 + r;
         const int g = g_base + row;
-        bf16x2& xv = pair_at(xs + elem_at<C>(row, co));
-        xv = (g >= 0 && g < T_len) ? __hadd2(xv, v) : __float2bfloat162_rn(0.f);
+        Pair& xv = pair_at(xs + elem_at<C, T>(row, co));
+        xv = (g >= 0 && g < T_len) ? add2(xv, v) : zero2<T>();
       });
       lo += h1 + h2;
       ext -= 2 * (h1 + h2);
@@ -196,15 +135,11 @@ __device__ __forceinline__ void stage_tensor_cores(const bf16* __restrict__ x,
     // last mma_conv ended with a barrier.
     for (int i = threadIdx.x; i < tile * kChunks; i += kThreads) {
       const int r = i / kChunks, ch = i % kChunks;
-      const uint4 v = *reinterpret_cast<const uint4*>(xs + 8 * chunk_at<C>(halo + r, ch));
-      const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
-      float* dst = acc + r * C + ch * 8;
+      float f[P];
+      unpack_chunk(*reinterpret_cast<const uint4*>(xs + P * chunk_at<C, T>(halo + r, ch)), f, T());
+      float* dst = acc + r * C + ch * P;
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const float2 f = __bfloat1622float2(h[q]);
-        dst[2 * q] += f.x;
-        dst[2 * q + 1] += f.y;
-      }
+      for (int q = 0; q < P; ++q) dst[q] += f[q];
     }
   }
   __syncthreads();
@@ -213,24 +148,12 @@ __device__ __forceinline__ void stage_tensor_cores(const bf16* __restrict__ x,
     const int r = i / kChunks, ch = i % kChunks;
     const int g = t0 + r;
     if (g >= T_len) continue;
-    const float* src = acc + r * C + ch * 8;
-    uint4 v;
-    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&v);
+    const float* src = acc + r * C + ch * P;
+    float f[P];
 #pragma unroll
-    for (int q = 0; q < 4; ++q)
-      h[q] = __floats2bfloat162_rn(src[2 * q] * inv, src[2 * q + 1] * inv);
-    *reinterpret_cast<uint4*>(yb + (size_t)g * C + ch * 8) = v;
+    for (int q = 0; q < P; ++q) f[q] = src[q] * inv;
+    *reinterpret_cast<uint4*>(yb + (size_t)g * C + ch * P) = pack_chunk(f, T());
   }
-}
-
-template <int C, typename T>
-__global__ void __launch_bounds__(kThreads)
-mrf_stage_kernel(const T* __restrict__ x, T* __restrict__ y, const StageArgs a,
-                 int T_len, int tile, int halo) {
-  if constexpr (std::is_same<T, float>::value)
-    stage_cuda_cores<C>(x, y, a, T_len, tile, halo);
-  else
-    stage_tensor_cores<C>(x, y, a, T_len, tile, halo);
 }
 
 template <int C, typename T>
@@ -242,13 +165,9 @@ static int launch(const void* x, void* y, const StageArgs& a, int B, int T_len,
     if (h > halo) halo = h;
   }
   const size_t n_x = (size_t)tile + 2 * halo;
-  size_t smem;
-  if constexpr (std::is_same<T, float>::value) {
-    smem = sizeof(float) * C * (2 * n_x + tile + kCiChunk);
-  } else {
-    if (kc != MmaCfg<C>::kKC) return (int)cudaErrorInvalidValue;
-    smem = sizeof(bf16) * (C * 2 * n_x + MmaTile<C>::kRingElems) + sizeof(float) * C * tile;
-  }
+  if (kc != MmaCfg<C, T>::kKC) return (int)cudaErrorInvalidValue;
+  const size_t smem =
+      sizeof(T) * (C * 2 * n_x + MmaTile<C, T>::kRingElems) + sizeof(float) * C * tile;
   auto kern = mrf_stage_kernel<C, T>;
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -277,7 +196,7 @@ static int dispatch_c(int C, const void* x, void* y, const StageArgs& a, int B,
 //   ks:      kernel size per chain
 //   n_units: residual units per chain
 //   dils:    dilation per unit, chains one after another
-//   kc:      weight rows per ring stage of the bf16 path, MmaCfg<C>::kKC (ignored for f32)
+//   kc:      weight rows per ring stage, MmaCfg<C, T>::kKC
 // Returns cudaGetLastError() after the launch, or cudaErrorInvalidValue.
 extern "C" int evt_mrf_stage(const void* x, void* y, const void* const* ptrs,
                              const int* ks, const int* n_units, const int* dils,

@@ -7,8 +7,9 @@ chunk plan and weight rolls are not carried over. The kernel is
 `emotivoice_tpu_torch/csrc/mrf_stage.cu`; its header comment states what
 bounds it on the H100 (operations: 252*C*C FLOP per row for the V1 stage)
 and what its design does about that (all chains run on one tile in shared
-memory; the tile is read once per chain and written once; in bf16 every conv
-runs on the tensor cores, `csrc/mma_conv.cuh`).
+memory; the tile is read once per chain and written once; every conv runs on
+the tensor cores: bf16 through `csrc/mma_conv.cuh`, f32 as a 3xTF32 split
+through `csrc/mma_conv_f32.cuh`).
 
 `fused_mrf_stage` launches the kernel for a CUDA tensor and takes the plain
 version for a CPU tensor; any other device, dtype or shape raises.
@@ -24,15 +25,16 @@ import torch
 from emotivoice_tpu_torch.ops.cuda import build
 from emotivoice_tpu_torch.ops.cuda.resblock import (
     CHANNELS,
-    ROWS_PER_PASS,
     SMEM_LIMIT,
     check_operands,
+    residual_unit_3xtf32,
     residual_unit_plain,
     ring_rows,
     weight_smem,
 )
 
 MAX_TILE = {torch.float32: 512, torch.bfloat16: 768}
+TILE_STEP = 64  # tiles are whole multiples of this many rows (4 m16 tiles)
 MAX_CHAINS = 4  # kMaxChains in csrc/mrf_stage.cu
 MAX_UNITS = 4  # kMaxUnits
 
@@ -51,6 +53,18 @@ def mrf_stage_plain(x, weights: StageWeights, kernel_sizes, dilation_sizes) -> t
     return acc / len(kernel_sizes)
 
 
+def mrf_stage_3xtf32(x, weights: StageWeights, kernel_sizes, dilation_sizes) -> torch.Tensor:
+    """mrf_stage_plain with every conv in the f32 kernel's arithmetic
+    (residual_unit_3xtf32), for the CPU tests."""
+    acc = None
+    for k, dils, units in zip(kernel_sizes, dilation_sizes, weights):
+        xk = x
+        for d, (w1, b1, w2, b2) in zip(dils, units):
+            xk = residual_unit_3xtf32(xk, w1, b1, w2, b2, k, d)
+        acc = xk if acc is None else acc + xk
+    return acc / len(kernel_sizes)
+
+
 def stage_halo(kernel_sizes, dilation_sizes) -> int:
     """Largest per-side halo of a chain: sum over units of (k-1)/2*(d+1)."""
     return max(
@@ -62,21 +76,22 @@ def stage_halo(kernel_sizes, dilation_sizes) -> int:
 def stage_smem(c: int, halo: int, tile: int, dtype: torch.dtype) -> int:
     """Shared memory of one block: chain activation and intermediate (x's
     dtype, haloed), f32 accumulator, weights."""
-    item = 2 if dtype == torch.bfloat16 else 4
-    return item * c * 2 * (tile + 2 * halo) + 4 * c * tile + weight_smem(c, dtype)
+    return dtype.itemsize * c * 2 * (tile + 2 * halo) + 4 * c * tile + weight_smem(c, dtype)
 
 
 def stage_tile(c: int, halo: int, t: int, dtype: torch.dtype = torch.float32) -> int:
-    """Largest multiple of 64 rows (at most MAX_TILE[dtype], at most T
-    rounded up) whose tiles and weights fit in shared memory."""
+    """Largest multiple of TILE_STEP rows (at most MAX_TILE[dtype], at most
+    T rounded up) whose tiles and weights fit in shared memory. At the V1
+    topology every conv of such a tile is one pass of the core's rows."""
     if c not in CHANNELS:
         raise ValueError(f"no kernel for C={c}; C must be one of {CHANNELS}")
-    cap = min(MAX_TILE[dtype], -(-t // ROWS_PER_PASS) * ROWS_PER_PASS)
-    tile = cap
+    if dtype not in MAX_TILE:
+        raise TypeError(f"no kernel for {dtype}")
+    tile = min(MAX_TILE[dtype], -(-t // TILE_STEP) * TILE_STEP)
     while tile > 0:
         if stage_smem(c, halo, tile, dtype) <= SMEM_LIMIT:
             return tile
-        tile -= ROWS_PER_PASS
+        tile -= TILE_STEP
     raise ValueError(f"no time tile fits shared memory at C={c}, halo {halo}")
 
 

@@ -5,8 +5,9 @@ Replaces the TPU kernel `emotivoice_tpu/ops/pallas/resblock.py`
 (`fused_residual_unit`). The kernel is `emotivoice_tpu_torch/csrc/resblock.cu`;
 its header comment states what bounds it on the H100 (operations: hundreds
 of FLOP per byte moved) and what its design does about that (the
-intermediate stays in shared memory, x is read once and y written once; in
-bf16 both convs run on the tensor cores, `csrc/mma_conv.cuh`).
+intermediate stays in shared memory, x is read once and y written once; both
+convs run on the tensor cores: bf16 through `csrc/mma_conv.cuh`, f32 as a
+3xTF32 split through `csrc/mma_conv_f32.cuh`).
 
 `fused_residual_unit` launches the kernel for a CUDA tensor and takes the
 plain version for a CPU tensor; any other device, dtype or shape raises.
@@ -25,24 +26,33 @@ from emotivoice_tpu_torch.ops.cuda import build
 LRELU_SLOPE = 0.1
 SMEM_LIMIT = 232_448  # bytes of shared memory one block may use on sm_90
 CHANNELS = (32, 64, 128, 256)  # C the kernels are instantiated for
-# f32 instantiation: the CUDA-core loop of csrc/conv_tile.cuh
-ROWS_PER_PASS = 64  # kRowsPerPass
-CI_CHUNK = 16  # kCiChunk
-MAX_PASSES = 8
-# bf16 instantiation: the tensor-core core of csrc/mma_conv.cuh
+# the tensor-core conv cores: csrc/mma_conv.cuh (bf16), csrc/mma_conv_f32.cuh (f32)
 WARPS = 8  # kWarps
 MMA_ROWS = 16  # rows of one mma.sync m16 tile
-# MmaCfg<C> as (kWN, kNT, kMT, kKC, kStages): warps across C_out, n8 tiles and
+# MmaCfg<C, T> as (kWN, kNT, kMT, kKC, kStages): warps across C_out, n8 tiles and
 # m16 tiles per warp, weight rows (tap x C_in) per ring stage, ring depth
 MMA_CFG = {
-    32: (1, 4, 8, 128, 2),
-    64: (1, 8, 4, 128, 2),
-    128: (2, 8, 4, 128, 2),
-    256: (4, 8, 4, 64, 2),
+    torch.bfloat16: {
+        32: (1, 4, 8, 128, 2),
+        64: (1, 8, 4, 128, 2),
+        128: (2, 8, 4, 128, 2),
+        256: (4, 8, 4, 64, 2),
+    },
+    torch.float32: {
+        32: (1, 4, 5, 32, 3),
+        64: (1, 8, 3, 32, 2),
+        128: (2, 8, 4, 16, 3),
+        256: (4, 8, 4, 16, 2),
+    },
 }
-# Fewest rows of a bf16 tile: each weight byte a block streams from L2 serves
-# that many rows, and below ~64 rows L2 becomes the limit.
-MMA_MIN_ROWS = {32: 64, 64: 64, 128: 128, 256: 64}
+RING_PAD = {torch.bfloat16: 0, torch.float32: 8}  # MmaTile<C, T>::kLd - C, values per ring row
+# Fewest rows of a tile: each weight byte a block streams from L2 serves that
+# many rows, and below them L2 becomes the limit. f32 rows are twice as wide,
+# so fewer fit beside the ring.
+MMA_MIN_ROWS = {
+    torch.bfloat16: {32: 64, 64: 64, 128: 128, 256: 64},
+    torch.float32: {32: 64, 64: 64, 128: 96, 256: 48},
+}
 H100_SMS = 132  # streaming multiprocessors of an H100 SXM
 
 
@@ -70,33 +80,58 @@ def residual_unit_plain(x, w1, b1, w2, b2, k: int, d: int) -> torch.Tensor:
     return x + xt
 
 
+def tf32_round(v: torch.Tensor) -> torch.Tensor:
+    """f32 values rounded to TF32 (10-bit mantissa), nearest with ties away
+    from zero, as the f32 kernels' split_tf32 (csrc/mma_conv_f32.cuh) does:
+    half a TF32 ulp added to the magnitude bits, the low 13 bits dropped."""
+    bits = v.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def conv_same_3xtf32(a, w_hio, bias, dilation: int, terms: int = 3) -> torch.Tensor:
+    """conv_same in the f32 kernels' arithmetic, for the CPU tests: both
+    operands split into a TF32 head and tail, the conv taken as
+    tail*head + head*tail + head*head with f32 sums (tail*tail dropped).
+    terms=1 keeps head*head alone: one TF32 product per f32 product."""
+    a_head, w_head = tf32_round(a), tf32_round(w_hio)
+    zero = torch.zeros_like(bias)
+    y = conv_same(a_head, w_head, zero, dilation)
+    if terms == 3:
+        a_tail, w_tail = tf32_round(a - a_head), tf32_round(w_hio - w_head)
+        y = (conv_same(a_tail, w_head, zero, dilation)
+             + conv_same(a_head, w_tail, zero, dilation)) + y
+    return y + bias
+
+
+def residual_unit_3xtf32(x, w1, b1, w2, b2, k: int, d: int) -> torch.Tensor:
+    """residual_unit_plain with both convs in the f32 kernels' arithmetic."""
+    xt = conv_same_3xtf32(lrelu(x), w1, b1, d)
+    xt = conv_same_3xtf32(lrelu(xt), w2, b2, 1)
+    return x + xt
+
+
 def ring_rows(c: int, dtype: torch.dtype) -> int:
-    """Weight rows per ring stage passed to the kernel (`kc`): bf16 only."""
-    return MMA_CFG[c][3] if dtype == torch.bfloat16 else 0
+    """Weight rows per ring stage passed to the kernel (`kc`)."""
+    return MMA_CFG[dtype][c][3]
 
 
 def weight_smem(c: int, dtype: torch.dtype) -> int:
-    """Bytes of shared memory the weights take: the bf16 path's cp.async
-    ring, or the f32 loop's chunk of CI_CHUNK input channels."""
-    if dtype == torch.bfloat16:
-        _, _, _, kc, stages = MMA_CFG[c]
-        return stages * kc * c * 2
-    return 4 * CI_CHUNK * c
+    """Bytes of shared memory the cp.async weight ring takes."""
+    _, _, _, kc, stages = MMA_CFG[dtype][c]
+    return stages * kc * (c + RING_PAD[dtype]) * dtype.itemsize
 
 
 def pass_rows(c: int, dtype: torch.dtype) -> int:
     """Output rows one pass of the kernel's conv loop covers."""
-    if dtype == torch.bfloat16:
-        wn, _, mt, _, _ = MMA_CFG[c]
-        return WARPS // wn * mt * MMA_ROWS
-    return ROWS_PER_PASS
+    wn, _, mt, _, _ = MMA_CFG[dtype][c]
+    return WARPS // wn * mt * MMA_ROWS
 
 
 def unit_smem(c: int, k: int, d: int, tile: int, dtype: torch.dtype) -> int:
     """Shared memory of one block: haloed x tile, intermediate, weights."""
     h1, h2 = (k - 1) // 2 * d, (k - 1) // 2
-    item = 2 if dtype == torch.bfloat16 else 4
-    return item * c * ((tile + 2 * (h1 + h2)) + (tile + 2 * h2)) + weight_smem(c, dtype)
+    rows = (tile + 2 * (h1 + h2)) + (tile + 2 * h2)
+    return dtype.itemsize * c * rows + weight_smem(c, dtype)
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -108,39 +143,32 @@ def unit_tile(c: int, k: int, d: int, t: int, dtype: torch.dtype = torch.float32
               batch: int = 1, n_sm: int = H100_SMS) -> int:
     """Time tile of the kernel, within the shared-memory limit.
 
-    f32: conv1 covers tile + 2*(k-1)/2 rows, a whole number of 64-row passes
-    (at most MAX_PASSES), as large as fits.
-
-    bf16: conv1 covers at most one pass of the tensor-core core, the tile has
-    at least MMA_MIN_ROWS[c] rows (fewer only where the pass is shorter), and
-    the tile or conv1's rows are a whole number of m16 tiles. Of those, the
-    tile with the least waves * work: waves = ceil(blocks / n_sm), work = the
-    m16 tiles per warp of both convs plus one per conv for its weight stream.
+    conv1 covers at most one pass of the tensor-core core, the tile has at
+    least MMA_MIN_ROWS[dtype][c] rows (fewer only where the pass is shorter),
+    and the tile or conv1's rows are a whole number of m16 tiles. Of those,
+    the tile with the least waves * work: waves = ceil(blocks / n_sm), work =
+    the m16 tiles per warp of both convs plus one per conv for its weight
+    stream.
     """
     if c not in CHANNELS:
         raise ValueError(f"no kernel for C={c}; C must be one of {CHANNELS}")
+    if dtype not in MMA_CFG:
+        raise TypeError(f"no kernel for {dtype}")
     h2 = (k - 1) // 2
-    best = None
-    if dtype != torch.bfloat16:
-        for p in range(1, max(1, min(MAX_PASSES, _cdiv(t + 2 * h2, ROWS_PER_PASS))) + 1):
-            tile = ROWS_PER_PASS * p - 2 * h2
-            if tile > 0 and unit_smem(c, k, d, tile, dtype) <= SMEM_LIMIT:
-                best = tile
-    else:
-        warps_m = WARPS // MMA_CFG[c][0]
-        rows = pass_rows(c, dtype)
-        hi = rows - 2 * h2
-        lo = min(MMA_MIN_ROWS[c], hi)
-        cands = {m * MMA_ROWS for m in range(1, rows // MMA_ROWS + 1)}
-        cands |= {m * MMA_ROWS - 2 * h2 for m in range(1, rows // MMA_ROWS + 1)}
-        best_cost = None
-        for tile in sorted(x for x in cands if lo <= x <= hi):
-            if unit_smem(c, k, d, tile, dtype) > SMEM_LIMIT:
-                break
-            waves = _cdiv(batch * _cdiv(t, tile), n_sm)
-            work = sum(_cdiv(_cdiv(n, MMA_ROWS), warps_m) + 1 for n in (tile + 2 * h2, tile))
-            if best_cost is None or waves * work <= best_cost:
-                best, best_cost = tile, waves * work
+    warps_m = WARPS // MMA_CFG[dtype][c][0]
+    rows = pass_rows(c, dtype)
+    hi = rows - 2 * h2
+    lo = min(MMA_MIN_ROWS[dtype][c], hi)
+    cands = {m * MMA_ROWS for m in range(1, rows // MMA_ROWS + 1)}
+    cands |= {m * MMA_ROWS - 2 * h2 for m in range(1, rows // MMA_ROWS + 1)}
+    best = best_cost = None
+    for tile in sorted(x for x in cands if lo <= x <= hi):
+        if unit_smem(c, k, d, tile, dtype) > SMEM_LIMIT:
+            break
+        waves = _cdiv(batch * _cdiv(t, tile), n_sm)
+        work = sum(_cdiv(_cdiv(n, MMA_ROWS), warps_m) + 1 for n in (tile + 2 * h2, tile))
+        if best_cost is None or waves * work <= best_cost:
+            best, best_cost = tile, waves * work
     if best is None:
         raise ValueError(f"no time tile fits shared memory at C={c} k={k} d={d}")
     return best

@@ -401,7 +401,13 @@ def make_stdlib_server(service: TTSService, host: str = "0.0.0.0", port: int = 8
         def log_message(self, *args):
             pass
 
-    return ThreadingHTTPServer((host, port), Handler)
+    class Server(ThreadingHTTPServer):
+        # socketserver's backlog of 5 connections is less than one burst of a
+        # batch: with the accept loop waiting its turn behind busy handler
+        # threads, further connections were reset before they were accepted.
+        request_queue_size = 128
+
+    return Server((host, port), Handler)
 
 
 def serve_stdlib(service: TTSService, host: str = "0.0.0.0", port: int = 8000):

@@ -248,6 +248,7 @@ def server(setup):
     _, engine = setup
     svc = port_service(engine, batching=True)
     srv = make_stdlib_server(svc, "127.0.0.1", 0)
+    assert srv.request_queue_size >= 64  # a burst of a full batch fits the listen backlog
     th = threading.Thread(target=srv.serve_forever, daemon=True)
     th.start()
     try:

@@ -11,6 +11,11 @@ of a residual unit's outputs bit-equal (95% of a whole stage's, whose 18
 convs carry a flipped rounding on), the rest within one bf16 step of the
 largest value (2**-7 * max |ref|); sums taken in another order flip a few
 roundings. Rounding lrelu as F.leaky_relu does fails both shares.
+
+The f32 kernels multiply on the tensor cores as a 3xTF32 split. Its
+arithmetic is emulated here in PyTorch (`conv_same_3xtf32`): within 5e-6 of
+max |ref| of the f32 conv and within 1e-5 of the JAX references, 20x inside
+ATOL, where one TF32 product per f32 product misses by more than 1e-4.
 """
 
 import functools
@@ -29,6 +34,7 @@ import test_torch_support  # noqa: F401  (one intra-op thread per worker)
 from emotivoice_tpu.ops.pallas import packed_stage as jps
 from emotivoice_tpu.ops.pallas import resblock as jrb
 from emotivoice_tpu_torch.ops.cuda import build
+from emotivoice_tpu_torch.ops.cuda import kernel_bench
 from emotivoice_tpu_torch.ops.cuda import mrf_stage as tms
 from emotivoice_tpu_torch.ops.cuda import resblock as trb
 
@@ -146,6 +152,70 @@ def test_lrelu_is_bit_exact(dtype):
     assert torch.equal(got, want)
 
 
+def test_tf32_round_is_nearest_with_ties_away():
+    v = torch.from_numpy(np.random.RandomState(7).randn(50000).astype(np.float32) * 3)
+    r = trb.tf32_round(v)
+    assert int((r.view(torch.int32) & 0x1FFF).abs().max()) == 0  # 10-bit mantissa
+    assert float(((r - v).abs() / v.abs()).max()) <= 2.0 ** -11
+    # 1 + 2**-11 lies halfway between two TF32 values: away from zero, both signs
+    tie = torch.tensor([1.0 + 2.0 ** -11, -1.0 - 2.0 ** -11])
+    assert trb.tf32_round(tie).tolist() == [1.0 + 2.0 ** -10, -1.0 - 2.0 ** -10]
+    assert torch.equal(trb.tf32_round(r), r)
+
+
+def _conv_case(c, k, d=3):
+    rng = np.random.RandomState(100 * c + k)
+    x = torch.from_numpy(rng.randn(2, 203, c).astype(np.float32) * 0.5)
+    w = torch.from_numpy(rng.randn(k, c, c).astype(np.float32) * 0.1)
+    b = torch.from_numpy(rng.randn(c).astype(np.float32) * 0.05)
+    return x, w, b, d
+
+
+@pytest.mark.parametrize("c", [32, 64])
+@pytest.mark.parametrize("k", [3, 11])
+def test_3xtf32_conv_matches_f32_conv(c, k):
+    x, w, b, d = _conv_case(c, k)
+    want = trb.conv_same(x, w, b, d)
+    got = trb.conv_same_3xtf32(x, w, b, d)
+    scale = float(want.abs().max())
+    assert scale > 0.1
+    assert float((got - want).abs().max()) <= 5e-6 * scale
+
+
+def test_one_tf32_product_is_not_enough():
+    """Why three terms are taken: the head*head product alone (what the
+    tensor cores give f32 operands as plain TF32) misses the f32 conv by
+    more than 1e-4 of max at C=64 k=11, half of ATOL after one conv of 36."""
+    x, w, b, d = _conv_case(64, 11)
+    want = trb.conv_same(x, w, b, d)
+    got = trb.conv_same_3xtf32(x, w, b, d, terms=1)
+    assert float((got - want).abs().max()) > 1e-4 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("k,d,c", [(3, 1, 32), (7, 3, 64), (11, 5, 32)])
+def test_residual_unit_3xtf32_matches_jax_reference(k, d, c):
+    rng = np.random.RandomState(k * 10 + d)
+    x = rng.randn(2, 203, c).astype(np.float32) * 0.5
+    w1, b1, w2, b2 = _unit(rng, k, c)
+    want = np.asarray(jrb.fused_residual_unit_reference(*_j([x, w1, b1, w2, b2]), k, d))
+    got = trb.residual_unit_3xtf32(*_t([x, w1, b1, w2, b2]), k, d).numpy()
+    scale = np.max(np.abs(want))
+    assert scale > 0.1
+    assert np.max(np.abs(got - want)) <= 1e-5 * scale
+
+
+@pytest.mark.parametrize("c", [32, 64])
+def test_mrf_stage_3xtf32_matches_jax_reference(c):
+    rng = np.random.RandomState(c)
+    x = rng.randn(2, 301, c).astype(np.float32) * 0.5
+    ws = _stage(rng, V1_KS, V1_DS, c)
+    want = np.asarray(jps.mrf_stage_reference(jnp.asarray(x), _j(ws), V1_KS, V1_DS))
+    got = tms.mrf_stage_3xtf32(torch.from_numpy(x), _t(ws), V1_KS, V1_DS).numpy()
+    scale = np.max(np.abs(want))
+    assert scale > 0.1
+    assert np.max(np.abs(got - want)) <= 1e-5 * scale
+
+
 def test_residual_unit_plain_matches_pallas_interpret():
     from jax.experimental import pallas as pl
 
@@ -232,26 +302,21 @@ def test_operand_checks_accept_valid():
 @pytest.mark.parametrize("c", [128, 256])
 def test_unit_tile_fits_shared_memory_at_main_path_shapes(c, dtype):
     t = {256: 8 * 384, 128: 64 * 384}[c]  # stages 1-2 of the bench bucket
+    _, _, _, kc, stages = trb.MMA_CFG[dtype][c]
+    ring = stages * kc * (c + trb.RING_PAD[dtype])  # values in the weight ring
+    # rows per weight byte from L2: f32 rows are twice as wide
+    least = {torch.bfloat16: {256: 64, 128: 128}, torch.float32: {256: 48, 128: 96}}[dtype][c]
     for k in V1_KS:
         for d in (1, 3, 5):
             h1, h2 = (k - 1) // 2 * d, (k - 1) // 2
-            if dtype == torch.float32:
-                tile = trb.unit_tile(c, k, d, 3072)
-                smem = 4 * c * ((tile + 2 * (h1 + h2)) + (tile + 2 * h2) + trb.CI_CHUNK)
-                assert tile > 0 and smem <= trb.SMEM_LIMIT
-                # conv1 covers a whole number of 64-row passes
-                assert (tile + 2 * h2) % trb.ROWS_PER_PASS == 0
-                continue
             tile = trb.unit_tile(c, k, d, t, dtype, batch=16, n_sm=132)
-            _, _, _, kc, stages = trb.MMA_CFG[c]
-            smem = 2 * c * ((tile + 2 * (h1 + h2)) + (tile + 2 * h2) + stages * kc)
-            assert smem <= trb.SMEM_LIMIT
+            smem = dtype.itemsize * (c * ((tile + 2 * (h1 + h2)) + (tile + 2 * h2)) + ring)
+            assert smem == trb.unit_smem(c, k, d, tile, dtype) <= trb.SMEM_LIMIT
             # either conv2 or conv1 covers whole m16 tiles, conv1 one pass
             assert tile % trb.MMA_ROWS == 0 or (tile + 2 * h2) % trb.MMA_ROWS == 0
             assert tile + 2 * h2 <= trb.pass_rows(c, dtype)
-            # rows per weight byte from L2, and the tile covers one side's halo
-            assert tile >= {256: 64, 128: 128}[c]
-            assert tile >= h1 + h2
+            assert tile >= least
+            assert tile >= h1 + h2  # the tile covers one side's halo
 
 
 def test_unit_tile_bf16_fills_whole_waves():
@@ -265,8 +330,29 @@ def test_unit_tile_bf16_fills_whole_waves():
     assert trb.unit_tile(256, 11, 5, 3072, torch.bfloat16, batch=16, n_sm=432) == 118
 
 
+def test_unit_tile_f32_is_bounded_by_shared_memory():
+    """f32 rows are 1 KB at C=256. At k=11 d=5 a tile has 70 halo and
+    intermediate rows beside it and the ring takes 33,792 bytes: 64 rows do
+    not fit (236,544 of 232,448 bytes), so the tile is 54, conv1 covering
+    four whole m16 tiles. At k=3 d=1 a 94-row tile takes the limit exactly."""
+    assert trb.weight_smem(256, torch.float32) == 33_792
+    assert trb.unit_smem(256, 11, 5, 64, torch.float32) == 236_544
+    assert trb.unit_tile(256, 11, 5, 3072, torch.float32, batch=16, n_sm=132) == 54
+    assert trb.unit_tile(256, 3, 1, 3072, torch.float32, batch=16, n_sm=132) == 94
+    assert trb.unit_smem(256, 3, 1, 94, torch.float32) == trb.SMEM_LIMIT
+    assert trb.unit_tile(128, 11, 5, 24576, torch.float32, batch=16, n_sm=132) == 166
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.float64])
+def test_tile_planners_refuse_other_dtypes(dtype):
+    with pytest.raises(TypeError, match="no kernel"):
+        trb.unit_tile(128, 3, 1, 1024, dtype)
+    with pytest.raises(TypeError, match="no kernel"):
+        tms.stage_tile(64, 60, 1024, dtype)
+
+
 @pytest.mark.parametrize("c,dtype,want_tile", [
-    (64, torch.float32, 192), (32, torch.float32, 512),
+    (64, torch.float32, 192), (32, torch.float32, 448),
     (64, torch.bfloat16, 320), (32, torch.bfloat16, 768),
 ])
 def test_stage_tile_at_main_path_shapes(c, dtype, want_tile):
@@ -274,14 +360,14 @@ def test_stage_tile_at_main_path_shapes(c, dtype, want_tile):
     assert halo == 60  # k=11: 5*(1+1) + 5*(3+1) + 5*(5+1)
     tile = tms.stage_tile(c, halo, 49152, dtype)
     assert tile == want_tile
-    if dtype == torch.float32:
-        assert 4 * c * (2 * (tile + 2 * halo) + tile + trb.CI_CHUNK) <= trb.SMEM_LIMIT
-    else:
-        _, _, _, kc, stages = trb.MMA_CFG[c]
-        smem = 2 * c * 2 * (tile + 2 * halo) + 4 * c * tile + 2 * stages * kc * c
-        assert smem <= trb.SMEM_LIMIT
-        assert tile % trb.MMA_ROWS == 0 and tile >= 2 * halo
-    assert tms.stage_tile(c, halo, 50, dtype) == 64  # short inputs get one pass
+    _, _, _, kc, stages = trb.MMA_CFG[dtype][c]
+    ring = stages * kc * (c + trb.RING_PAD[dtype])
+    smem = dtype.itemsize * (c * 2 * (tile + 2 * halo) + ring) + 4 * c * tile
+    assert smem == tms.stage_smem(c, halo, tile, dtype) <= trb.SMEM_LIMIT
+    assert tile % trb.MMA_ROWS == 0 and tile >= 2 * halo
+    # every conv of the tile (at most tile + 2 * halo rows) is one pass of the core
+    assert tile + 2 * halo <= trb.pass_rows(c, dtype)
+    assert tms.stage_tile(c, halo, 50, dtype) == 64  # short inputs get one step
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -291,22 +377,30 @@ def test_stage_tile_refuses_what_does_not_fit(dtype):
 
 
 def test_core_config_matches_the_cuda_header():
-    """The wrappers' MMA_CFG and WARPS mirror MmaCfg<C> (mma_conv.cuh) and
-    kThreads (conv_tile.cuh), from which the kernels size shared memory."""
-    with open(os.path.join(build.CSRC_DIR, "mma_conv.cuh")) as f:
-        header = f.read()
-    cfg = {
-        int(c): tuple(int(v) for v in vals)
-        for c, *vals in re.findall(
-            r"struct MmaCfg<(\d+)> \{ static constexpr int kWN = (\d+), kNT = (\d+), "
-            r"kMT = (\d+), kKC = (\d+), kStages = (\d+); \};", header)
-    }
-    assert cfg == trb.MMA_CFG
+    """The wrappers' MMA_CFG, RING_PAD and WARPS mirror MmaCfg<C, T>
+    (mma_conv.cuh for bf16, mma_conv_f32.cuh for float), MmaTile<C, T>::kLd
+    and kThreads (conv_tile.cuh), from which the kernels size shared memory."""
+    names = {torch.bfloat16: ("mma_conv.cuh", "bf16", 16), torch.float32: ("mma_conv_f32.cuh", "float", 8)}
+    for dtype, (fname, tname, k_step) in names.items():
+        with open(os.path.join(build.CSRC_DIR, fname)) as f:
+            header = f.read()
+        cfg = {
+            int(c): tuple(int(v) for v in vals)
+            for c, *vals in re.findall(
+                r"struct MmaCfg<(\d+), %s> \{ static constexpr int kWN = (\d+), kNT = (\d+), "
+                r"kMT = (\d+), kKC = (\d+), kStages = (\d+); \};" % tname, header)
+        }
+        assert cfg == trb.MMA_CFG[dtype]
+        for c, (wn, nt, _, kc, stages) in cfg.items():
+            assert wn * nt * 8 == c and kc % k_step == 0 and stages >= 2
+            if dtype == torch.float32:  # a chunk lies within one tap; whole copies per thread
+                assert c % kc == 0 and kc * c // 4 % (32 * trb.WARPS) == 0
     with open(os.path.join(build.CSRC_DIR, "conv_tile.cuh")) as f:
-        threads = int(re.search(r"constexpr int kThreads = (\d+);", f.read()).group(1))
+        shared = f.read()
+    threads = int(re.search(r"constexpr int kThreads = (\d+);", shared).group(1))
     assert threads == 32 * trb.WARPS
-    for c, (wn, nt, _, kc, stages) in cfg.items():
-        assert wn * nt * 8 == c and kc % 16 == 0 and stages >= 2
+    pad = re.search(r"kLd = std::is_same<T, float>::value \? C \+ (\d+) : C;", shared)
+    assert trb.RING_PAD == {torch.bfloat16: 0, torch.float32: int(pad.group(1))}
 
 
 def test_chip_smoke_counts_tensor_core_instructions_per_instantiation():
@@ -315,6 +409,11 @@ def test_chip_smoke_counts_tensor_core_instructions_per_instantiation():
         "        /*0a30*/                   HMMA.16816.F32.BF16 R4, R12, R20, R4 ;",
         "        /*0a40*/                   HMMA.16816.F32.BF16 R8, R12, R22, R8 ;",
         "\t\tFunction : _ZN3evt20residual_unit_kernelILi256EfEEvPKT0_S3_S3_S3_S3_PS1_iiii",
+        "        /*0100*/                   HMMA.1688.F32.TF32 R4, R8, R12, R4 ;",
+        "        /*0110*/                   FADD R4, R5, R6 ;",
+        "        /*0120*/                   HMMA.1688.F32.TF32 R16, R8, R14, R16 ;",
+        "        /*0130*/                   HMMA.1688.F32.TF32 R20, R8, R14, R20 ;",
+        "\t\tFunction : _ZN3evt16mrf_stage_kernelILi64EfEEvPKT0_PS1_NS_9StageArgsEiii",
         "        /*0100*/                   FFMA R4, R5, R6, R4 ;",
         "\t\tFunction : _ZN3evt16mrf_stage_kernelILi32E13__nv_bfloat16EEvPKT0_PS2_NS_9StageArgsEiii",
         "        /*0200*/                   HMMA.16816.F32.BF16 R4, R12, R20, R4 ;",
@@ -323,9 +422,50 @@ def test_chip_smoke_counts_tensor_core_instructions_per_instantiation():
     ])
     assert chip_smoke.parse_sass_mma(sass) == {
         ("residual_unit_kernel", 256, "bf16"): 2,
-        ("residual_unit_kernel", 256, "f32"): 0,
+        ("residual_unit_kernel", 256, "f32"): 3,
+        ("mrf_stage_kernel", 64, "f32"): 0,
         ("mrf_stage_kernel", 32, "bf16"): 1,
     }
+
+
+@pytest.mark.parametrize("fname,tname,dtype", [
+    ("mma_conv_f32.cuh", "float", torch.float32), ("mma_conv.cuh", "bf16", torch.bfloat16)])
+def test_kernel_bench_patches_one_config_line(fname, tname, dtype):
+    """A --cfg variant replaces MmaCfg<C, T> of that C and type only."""
+    with open(os.path.join(build.CSRC_DIR, fname)) as f:
+        header = f.read()
+    cfg = kernel_bench.parse_cfg("256:4,8,4,8,3;64:2,4,5,32,2")
+    assert cfg == {256: (4, 8, 4, 8, 3), 64: (2, 4, 5, 32, 2)}
+    patched = kernel_bench.patch_header(header, cfg, tname)
+    changed = [(a, b) for a, b in zip(header.splitlines(), patched.splitlines()) if a != b]
+    assert len(changed) == 2 and len(header.splitlines()) == len(patched.splitlines())
+    assert kernel_bench.CFG_LINE % (256, tname, 4, 8, 4, 8, 3) in patched
+    assert kernel_bench.CFG_LINE % (128, tname, *trb.MMA_CFG[dtype][128]) in patched  # untouched
+    with pytest.raises(ValueError, match="no MmaCfg"):
+        kernel_bench.patch_header(header, cfg, "double")
+    with pytest.raises(ValueError, match="--cfg wants"):
+        kernel_bench.parse_cfg("48:1,2,3,4,5")
+
+
+def test_kernel_bench_reads_registers_and_spills():
+    log = "\n".join([
+        "ptxas info    : Compiling entry function '_ZN3evt16mrf_stage_kernelILi128EfEEvPKT0_PS1_NS_9StageArgsEiii' for 'sm_90a'",
+        "ptxas info    : Function properties for _ZN3evt16mrf_stage_kernelILi128EfEEvPKT0_PS1_NS_9StageArgsEiii",
+        "    8 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads",
+        "ptxas info    : Used 255 registers, used 1 barriers, 8 bytes cumulative stack size",
+        "ptxas info    : Compiling entry function '_ZN3evt20residual_unit_kernelILi256E13__nv_bfloat16EEvPKT0_S4_S4_S4_S4_PS2_iiii' for 'sm_90a'",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 251 registers, used 1 barriers",
+    ])
+    assert kernel_bench.ptxas_summary(log) == [
+        ("mrf_stage_kernel", 128, "f", 255, "8 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads"),
+        ("residual_unit_kernel", 256, "13__nv_bfloat16", 251, ""),
+    ]
+
+
+def test_kernel_bench_needs_a_card(capsys):
+    assert kernel_bench.main([]) == 1
+    assert "needs a CUDA card" in capsys.readouterr().err
 
 
 def test_find_nvcc_raises_when_absent(monkeypatch):
@@ -340,4 +480,6 @@ def test_build_targets_sm90a_and_lists_every_source():
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
     names = sorted(p.rsplit("/", 1)[-1] for p in build._sources())
     assert names == ["mrf_stage.cu", "resblock.cu"]
+    headers = sorted(p.rsplit("/", 1)[-1] for p in os.listdir(build.CSRC_DIR) if p.endswith(".cuh"))
+    assert headers == ["conv_tile.cuh", "mma_conv.cuh", "mma_conv_f32.cuh"]  # all hashed into the stamp
     assert build.BUILD_DIR.endswith("build/torch_kernels")
