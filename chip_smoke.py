@@ -45,7 +45,24 @@ Phases (any failure exits non-zero and prints no result line):
                 timed alone in several arrangements (one thread, 8 threads,
                 behind a lock, batched, beside a generator call) to show
                 where a burst's embedding time goes;
-  8. summary  - a `kernels` JSON line, then the result line.
+  8. train    - joint GAN training of the full-width model (EmotiVoiceConfig:
+                384-d 4+4-layer acoustic model, HiFi-GAN V1, 5 MPD + 3 MSD
+                discriminators; random parameters from a seed, zero
+                embeddings) at batch 16, f32, on a synthetic corpus the port
+                writes (64 + 8 utterances, 4 speakers): `train()` for 30
+                steps with a checkpoint at step 20 and validation at step 30,
+                then again from the step-20 checkpoint to step 36. The train
+                steps must launch no kernel (the trainer's generator runs the
+                plain differentiable convs); validation must launch 18 + 2
+                per generator call, and both kernels are held against their
+                plain versions at validation's shapes. Losses finite, the
+                spectral-norm u moved; one step on the card and on the CPU
+                from the same state and batch (2 rows, dropout off, the same
+                segment starts): every loss and the gradient norms of named
+                parameters compared. Median step wall ms, steps/s, the
+                device split of a step (CUDA events), peak memory, mel loss
+                at the first and last step, validation ms per generator call;
+  9. summary  - a `kernels` JSON line, then the result line.
 
 With --report, the detailed numbers are also written to PATH as JSON.
 With --profile, torch.profiler also measures the time the card is busy
@@ -86,6 +103,16 @@ TOL_F32 = 2e-4  # max |kernel - plain| / max |plain|, f32 with TF32 off
 TOL_BF16 = 2e-2  # the same in bf16 (roundings at other places)
 TOL_CPU = 2e-3  # whole path, card vs CPU, / max |wav|
 REPLAY_MAX_FRAMES = 6144  # batch x mel frames of a served call replayed on the CPU
+TRAIN_B, TRAIN_STEPS, TRAIN_CKPT, TRAIN_RESUMED_TO = 16, 30, 20, 36
+TOL_TRAIN_LOSS = 2e-3  # one train step, card vs CPU: each loss, relative
+TOL_TRAIN_GRAD = 5e-3  # the same for the gradient norm of each named parameter
+TRAIN_GRAD_PARAMS = (
+    "am.encoder.encoders.0.self_attn.linear_q.weight", "am.alignment_module.f_conv1.weight",
+    "am.duration_predictor.linear.weight", "am.decoder.encoders.3.feed_forward.w_2.weight",
+    "generator.conv_pre.weight_v", "generator.resblocks.11.convs2.2.weight_v",
+    "generator.ups.3.weight_g", "mpd.discriminators.0.convs.0.weight_v",
+    "mpd.discriminators.4.conv_post.weight_g", "msd.discriminators.0.convs.3.weight_orig",
+    "msd.discriminators.2.convs.5.weight_v")
 TOL_STYLE = 1e-4  # style encoder, card vs CPU, max |pooled| difference (tanh outputs, f32)
 V1_KS = (3, 7, 11)
 V1_DS = ((1, 3, 5),) * 3
@@ -1112,6 +1139,296 @@ def phase_serve(dev, cfg, vocab, model, embedder, cpu_model, profiled: bool) -> 
     return dict(launches=launches, path=path)
 
 
+# ---------------------------------------------------------------------------
+# 8. joint GAN training
+# ---------------------------------------------------------------------------
+
+def _train_cfg(n_vocab: int, n_speaker: int):
+    import dataclasses
+
+    from emotivoice_tpu_torch.config import EmotiVoiceConfig
+
+    cfg = EmotiVoiceConfig()
+    return cfg.replace(
+        am=dataclasses.replace(cfg.am, n_vocab=n_vocab, n_speaker=n_speaker),
+        train=dataclasses.replace(cfg.train, batch_size=TRAIN_B,
+                                  iters_per_validation=TRAIN_STEPS,
+                                  iters_per_checkpoint=TRAIN_CKPT))
+
+
+def _parse_log(path: str) -> list:
+    """(prefix-less) metric dicts of train_log.txt, in order."""
+    rows = []
+    for line in open(path).read().splitlines():
+        fields = dict(f.split("=", 1) for f in line.split())
+        rows.append({k: float(v) for k, v in fields.items()})
+    return rows
+
+
+def step_split_ms(trainer, batch, reps: int = 3) -> dict:
+    """Device ms of one train step's parts (CUDA events, median of `reps`):
+    the generator's forward (alignment search included), the D step, the G
+    step (D forward on the fake, losses, backward, Adam); and alone, on the
+    same log_p_attn, the alignment search (MAS) and the CTC loss."""
+    from emotivoice_tpu_torch.ops.align import forward_sum_loss, viterbi_decode
+
+    parts = {k: [] for k in ("generator_forward", "d_step", "g_step", "step", "mas", "ctc")}
+    for _ in range(reps):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        torch.cuda.synchronize()
+        ev[0].record()
+        out, y = trainer.generator_forward(batch)
+        ev[1].record()
+        trainer.discriminator_step(y, out["wav_predictions"])
+        ev[2].record()
+        trainer.generator_step(out, y)
+        ev[3].record()
+        trainer.count += 1
+        torch.cuda.synchronize()
+        for k, (a, b) in zip(("generator_forward", "d_step", "g_step", "step"),
+                             ((0, 1), (1, 2), (2, 3), (0, 3))):
+            parts[k].append(ev[a].elapsed_time(ev[b]))
+        lp = out["log_p_attn"].detach()
+        tl, fl = batch["text_lengths"], batch["mel_lengths"]
+        with torch.no_grad():
+            parts["mas"].append(timed(lambda: viterbi_decode(lp, tl, fl), iters=1, warmup=0))
+            parts["ctc"].append(timed(lambda: forward_sum_loss(lp, tl, fl), iters=1, warmup=0))
+    return {k: float(np.median(v)) for k, v in parts.items()}
+
+
+def train_step_card_vs_cpu(cfg, trainer, batch) -> dict:
+    """One step from the same state (models copied, fresh optimizers) and
+    batch (its first 2 rows) on the card and on the CPU, dropout off, the
+    same segment starts: every loss and the gradient norms of
+    TRAIN_GRAD_PARAMS, relative to the CPU's."""
+    from emotivoice_tpu_torch.models.discriminator import Discriminator
+    from emotivoice_tpu_torch.models.jets import JETSGenerator
+    from emotivoice_tpu_torch.ops.segments import random_starts
+    from emotivoice_tpu_torch.training.step import TrainStep
+
+    rows = {k: v[:2] for k, v in batch.items()}
+    starts = random_starts(rows["mel_lengths"], cfg.train.segment_size).cpu()
+    g_state = {k: v.detach().cpu() for k, v in trainer.model.state_dict().items()}
+    d_state = {k: v.detach().cpu() for k, v in trainer.disc.state_dict().items()}
+    got = {}
+    card_dev = next(trainer.model.parameters()).device
+    for name, device in (("card", card_dev), ("cpu", torch.device("cpu"))):
+        model = JETSGenerator(cfg, kernels=False)
+        model.load_state_dict(g_state)
+        disc = Discriminator(cfg.disc)
+        disc.load_state_dict(d_state)
+        model, disc = model.to(device).eval(), disc.to(device).eval()
+        step = TrainStep(cfg, model, disc)
+        t0 = time.perf_counter()
+        metrics = step({k: v.to(device) for k, v in rows.items()}, start_idxs=starts)
+        secs = time.perf_counter() - t0
+        named = {**dict(model.named_parameters()), **dict(disc.named_parameters())}
+        got[name] = dict(metrics={k: float(v) for k, v in metrics.items()},
+                         grads={k: float(named[k].grad.norm()) for k in TRAIN_GRAD_PARAMS},
+                         seconds=secs)
+    card, cpu = got["card"], got["cpu"]
+    loss_err = {k: abs(card["metrics"][k] - v) / max(abs(v), 1e-12)
+                for k, v in cpu["metrics"].items()}
+    grad_err = {k: abs(card["grads"][k] - v) / max(abs(v), 1e-12) for k, v in cpu["grads"].items()}
+    return dict(card=card, cpu=cpu, loss_rel_err=loss_err, grad_rel_err=grad_err)
+
+
+def phase_train(dev) -> dict:
+    import contextlib
+    import emotivoice_tpu_torch.training.validate as validate_mod
+    from emotivoice_tpu_torch.data.dataset import BucketedLoader, PromptTTSDataset
+    from emotivoice_tpu_torch.data.synthetic_corpus import main as make_corpus
+    from emotivoice_tpu_torch.frontend.tokens import TokenVocab, load_label_list
+    from emotivoice_tpu_torch.ops.cuda.mrf_stage import fused_mrf_stage
+    from emotivoice_tpu_torch.ops.cuda.resblock import fused_residual_unit
+    from emotivoice_tpu_torch.training.loop import build_models, to_device, train
+
+    # The kernels refuse a grad-requiring operand on the card too.
+    xg = torch.randn(1, 64, 128, device=dev, requires_grad=True)
+    wg = torch.randn(3, 128, 128, device=dev) * 0.05
+    bg = torch.zeros(128, device=dev)
+    try:
+        fused_residual_unit(xg, wg, bg, wg, bg, 3, 1)
+        fail("fused_residual_unit accepted an operand that requires grad")
+    except RuntimeError as e:
+        if "no backward" not in str(e):
+            raise
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        corpus, out = os.path.join(tmp, "corpus"), os.path.join(tmp, "out")
+        t0 = time.perf_counter()
+        make_corpus(["--out", corpus, "--n-train", "64", "--n-valid", "8", "--n-speakers", "4",
+                     "--seed", str(SEED)])
+        vocab = TokenVocab.from_file(os.path.join(corpus, "tokenlist"))
+        speakers = load_label_list(os.path.join(corpus, "speakers"))
+        cfg = _train_cfg(len(vocab), len(speakers))
+        zeros = np.zeros(cfg.am.bert_embedding, np.float32)
+        datasets = [PromptTTSDataset(os.path.join(corpus, name), cfg, vocab, speakers,
+                                     lambda text: zeros, cache_dir=os.path.join(tmp, "cache"),
+                                     device=dev)
+                    for name in ("datalist.jsonl", "valid.jsonl")]
+        for ds in datasets:  # features on the card, into the cache
+            for i in range(len(ds)):
+                ds[i]
+        prep_s = time.perf_counter() - t0
+        train_ds, valid_ds = datasets
+        loader = lambda: BucketedLoader(train_ds, TRAIN_B, seed=SEED)  # noqa: E731
+        valid_calls = []  # one generator call per validation batch
+
+        def valid_loader():
+            valid_calls.append(dict(snapshot=(fused_residual_unit.launches,
+                                              fused_mrf_stage.launches), batches=0))
+            for b in BucketedLoader(valid_ds, TRAIN_B, shuffle=False, drop_last=False,
+                                    pad_to_batch=True):
+                valid_calls[-1]["batches"] += 1
+                yield b
+
+        steps_per_epoch = len(train_ds) // TRAIN_B
+        model, disc = build_models(cfg, dev)
+        n_params = (sum(p.numel() for p in model.parameters()),
+                    sum(p.numel() for p in disc.parameters()))
+        u0 = disc.msd.discriminators[0].convs[0].weight_u.clone()
+        shapes = set()  # (B, T, C, dtype) handed to the kernels (validation only)
+
+        def on_up(_module, _args, y):
+            if model.generator.kernels:
+                shapes.add((*y.shape, y.dtype))
+
+        hooks = [up.register_forward_hook(on_up) for up in model.generator.ups]
+        fused_residual_unit.launches = 0
+        fused_mrf_stage.launches = 0
+        torch.cuda.reset_peak_memory_stats(dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            trainer = train(cfg, loader, out, total_steps=TRAIN_STEPS,
+                            steps_per_epoch=steps_per_epoch, valid_batch_iter_fn=valid_loader,
+                            log_every=1, device=dev, models=(model, disc))
+            torch.cuda.synchronize()
+        finally:
+            for h in hooks:
+                h.remove()
+        train_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(dev)
+        launches = {"fused_residual_unit": fused_residual_unit.launches,
+                    "fused_mrf_stage": fused_mrf_stage.launches}
+        if len(valid_calls) != 1 or valid_calls[0]["batches"] != 1:
+            fail(f"[train] validation ran {valid_calls}, expected one pass over one batch")
+        in_steps = dict(zip(launches, valid_calls[0]["snapshot"]))
+        in_valid = {k: launches[k] - in_steps[k] for k in launches}
+        gen_calls = valid_calls[0]["batches"]
+        log(f"[train] corpus 64 + 8 utterances, 4 speakers, features on the card: {prep_s:.1f} s; "
+            f"model {n_params[0] / 1e6:.1f} M + discriminator {n_params[1] / 1e6:.1f} M "
+            f"parameters, batch {TRAIN_B}, f32, {steps_per_epoch} steps per epoch")
+        log(f"[train] {trainer.count} steps + validation in {train_s:.1f} s; kernel launches in "
+            f"the train steps {in_steps}, in validation {in_valid} over {gen_calls} generator "
+            f"call(s); peak memory {peak / 2**30:.2f} GiB")
+        if any(in_steps.values()):
+            fail(f"[train] the train steps launched kernels: {in_steps}")
+        if (in_valid["fused_residual_unit"] != 18 * gen_calls
+                or in_valid["fused_mrf_stage"] != 2 * gen_calls):
+            fail(f"[train] validation launches {in_valid} != 18/2 per generator call x {gen_calls}")
+        rows = _parse_log(os.path.join(out, "log", "train_log.txt"))
+        steps = [r for r in rows if "g_loss" in r]
+        valid = [r for r in rows if "mel_l1" in r]
+        if [int(r["step"]) for r in steps] != list(range(1, TRAIN_STEPS + 1)) or len(valid) != 1:
+            fail(f"[train] log holds steps {[r['step'] for r in steps]} and {len(valid)} validations")
+        for r in steps + valid:
+            if not all(np.isfinite(v) for v in r.values()):
+                fail(f"[train] non-finite loss at step {r['step']}: {r}")
+        u1 = disc.msd.discriminators[0].convs[0].weight_u
+        u_moved = float((u1 - u0).abs().max())
+        if not u_moved > 0:
+            fail("[train] the spectral-norm u did not change over the D steps")
+        sps = [r["steps_per_sec"] for r in steps]
+        log(f"[train] mel_loss step 1 {steps[0]['mel_loss']:.4f} -> step {TRAIN_STEPS} "
+            f"{steps[-1]['mel_loss']:.4f}; g_loss {steps[0]['g_loss']:.3f} -> "
+            f"{steps[-1]['g_loss']:.3f}, d_loss {steps[0]['d_loss']:.3f} -> "
+            f"{steps[-1]['d_loss']:.3f}; validation {({k: round(v, 4) for k, v in valid[0].items()})}; "
+            f"spectral u moved by {u_moved:.3g}; loop's steps/s median {np.median(sps):.2f}")
+        ckpts = sorted(os.listdir(os.path.join(out, "ckpt")))
+        want = [f"{k}_{s:08d}" for k in ("do", "g") for s in (TRAIN_CKPT, TRAIN_STEPS)]
+        if ckpts != want:
+            fail(f"[train] checkpoints {ckpts} != {want}")
+
+        path = check_path_kernels(dev, model, shapes, "train")
+
+        # Steady-state step time, and its split, on a fixed batch.
+        batch = to_device(next(iter(loader())), dev)
+        walls = []
+        for i in range(6):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            trainer(batch)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        wall_ms = float(np.median(walls[1:]))
+        split = step_split_ms(trainer, batch)
+        t_feats = int(batch["mel"].shape[1])
+        log(f"[train] step at batch {TRAIN_B} x {int(batch['tokens'].shape[1])} tokens x {t_feats} "
+            f"frames: median wall {wall_ms:.1f} ms ({1e3 / wall_ms:.2f} steps/s; runs "
+            + ", ".join(f"{w:.1f}" for w in walls) + ")")
+        log(f"[train] device ms of a step (CUDA events, median of 3): generator forward "
+            f"{split['generator_forward']:.1f} (alignment search inside), D step "
+            f"{split['d_step']:.1f}, G step (D on the fake, losses, backward, Adam) "
+            f"{split['g_step']:.1f}, whole {split['step']:.1f}; alone on the same log_p_attn: "
+            f"MAS {split['mas']:.1f} ({t_feats} frames), CTC {split['ctc']:.2f}")
+
+        # Validation time per generator call (kernels on, inference mode).
+        vbatch = to_device(next(iter(BucketedLoader(valid_ds, TRAIN_B, shuffle=False,
+                                                    drop_last=False, pad_to_batch=True))), dev)
+        model.generator.kernels = True
+        try:
+            model.eval()
+            valid_ms = timed(lambda: validate_mod.eval_step(model, vbatch), iters=3)
+        finally:
+            model.generator.kernels = False
+            model.train()
+        log(f"[train] validation eval step (batch {TRAIN_B} x {int(vbatch['mel'].shape[1])} frames, "
+            f"one generator call with the kernels): {valid_ms:.1f} ms")
+
+        # Resume from the step-20 checkpoint: the final pair (step 30) goes,
+        # so step 20's is the newest; the second call runs past the first's end.
+        for k in ("g", "do"):
+            os.remove(os.path.join(out, "ckpt", f"{k}_{TRAIN_STEPS:08d}"))
+        fused_residual_unit.launches = 0
+        fused_mrf_stage.launches = 0
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            resumed = train(cfg, loader, out, total_steps=TRAIN_RESUMED_TO,
+                            steps_per_epoch=steps_per_epoch, log_every=1, device=dev)
+        torch.cuda.synchronize()
+        said = printed.getvalue().strip()
+        log(f"[train] second call, total_steps {TRAIN_RESUMED_TO}: printed {said!r}")
+        after = [int(r["step"]) for r in _parse_log(os.path.join(out, "log", "train_log.txt"))
+                 if "g_loss" in r][TRAIN_STEPS:]
+        if (f"resumed from step {TRAIN_CKPT}" not in said or resumed.count != TRAIN_RESUMED_TO
+                or after != list(range(TRAIN_CKPT + 1, TRAIN_RESUMED_TO + 1))):
+            fail(f"[train] resume: printed {said!r}, count {resumed.count}, logged steps {after}")
+        if fused_residual_unit.launches or fused_mrf_stage.launches:
+            fail("[train] the resumed train steps launched kernels")
+
+        cmp = train_step_card_vs_cpu(cfg, trainer, batch)
+        worst_loss = max(cmp["loss_rel_err"].items(), key=lambda kv: kv[1])
+        worst_grad = max(cmp["grad_rel_err"].items(), key=lambda kv: kv[1])
+        log(f"[train] one step card vs CPU (2 rows, dropout off, the same segment starts): "
+            f"worst loss rel err {worst_loss[1]:.2e} ({worst_loss[0]}; tol {TOL_TRAIN_LOSS}), "
+            f"worst grad-norm rel err {worst_grad[1]:.2e} ({worst_grad[0]}; tol {TOL_TRAIN_GRAD}) "
+            f"over {len(TRAIN_GRAD_PARAMS)} parameters; {cmp['cpu']['seconds']:.1f} s on the CPU")
+        if not (worst_loss[1] <= TOL_TRAIN_LOSS and worst_grad[1] <= TOL_TRAIN_GRAD):
+            fail(f"[train] card and CPU disagree: {cmp['loss_rel_err']} {cmp['grad_rel_err']}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    report["train"] = dict(
+        steps=TRAIN_STEPS, batch=TRAIN_B, params=n_params, prep_s=prep_s, train_s=train_s,
+        launches_steps=in_steps, launches_valid=in_valid, valid_generator_calls=gen_calls,
+        peak_bytes=peak, log=rows, u_moved=u_moved, step_wall_ms=walls,
+        step_wall_ms_median=wall_ms, steps_per_s=1e3 / wall_ms, split_ms=split,
+        valid_ms=valid_ms, resumed_said=said, card_vs_cpu=cmp)
+    return dict(launches=in_valid, launches_steps=in_steps, path=path)
+
+
 def found_encoder() -> bool:
     return importlib.util.find_spec("pydub") is not None or shutil.which("ffmpeg") is not None
 
@@ -1133,6 +1450,7 @@ def main() -> None:
     cpu_model = phase_cpu(dev, cfg, model)
     embedder = phase_style(dev, args.profile)
     serve_out = phase_serve(dev, cfg, vocab, model, embedder, cpu_model, args.profile)
+    train_out = phase_train(dev)
 
     kernels = []
     src = {"fused_residual_unit": ("emotivoice_tpu_torch/csrc/resblock.cu",
@@ -1146,10 +1464,13 @@ def main() -> None:
             name=name, route="cuda", source=source, replaces=replaces,
             launches=main_out["launches"][name],
             launches_serve=serve_out["launches"][name],
+            launches_train_steps=train_out["launches_steps"][name],
+            launches_train_validation=train_out["launches"][name],
             max_abs_err=max(kern["worst"][name], main_out["path"]["worst"][name],
-                            serve_out["path"]["worst"][name]),
+                            serve_out["path"]["worst"][name], train_out["path"]["worst"][name]),
             path_shapes_checked=(main_out["path"]["shapes"][name]
-                                 + serve_out["path"]["shapes"][name]),
+                                 + serve_out["path"]["shapes"][name]
+                                 + train_out["path"]["shapes"][name]),
             ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
             bound_by="operations" if t["flop"] / PEAK_BF16 >= t["bytes"] / PEAK_BYTES else "bytes",
             library_ms=t["library_ms"], bound_share=t["bound_ms"] / t["ms"],
@@ -1164,7 +1485,8 @@ def main() -> None:
             library_tf32_on_ms_f32=t32["library_tf32_ms"],
             # f32 on both driven paths: worst |kernel - plain| / max |plain|
             max_rel_err_f32=max(t32["err"], main_out["path"]["worst_rel"][name],
-                                serve_out["path"]["worst_rel"][name]),
+                                serve_out["path"]["worst_rel"][name],
+                                train_out["path"]["worst_rel"][name]),
         ))
     report["kernels"] = kernels
     if args.report:

@@ -14,6 +14,12 @@ none); the port then keeps its own values for those keys.
 `style_encoder_state_dict(params, n_layers)` does the same for the JAX
 `StyleEncoder` (SimBERT): `convert_bert` / `convert_style_encoder` read
 backwards, HF BERT key names.
+
+`discriminator_state_dict(params, spectral, dcfg)` carries the JAX
+`Discriminator` (`mpd_{p}` / `msd_{i}` trees and the spectral-norm `u`, `v`
+collection) into the port's `Discriminator` (`convert_discriminator` read
+backwards: `mpd.discriminators.{i}`, `msd.discriminators.{i}`,
+`weight_orig` / `weight_u` / `weight_v` under spectral norm).
 """
 
 from __future__ import annotations
@@ -23,7 +29,12 @@ from typing import Any, Dict, Mapping
 import numpy as np
 import torch
 
-from emotivoice_tpu_torch.config import AcousticConfig, EmotiVoiceConfig, VocoderConfig
+from emotivoice_tpu_torch.config import (
+    AcousticConfig,
+    DiscriminatorConfig,
+    EmotiVoiceConfig,
+    VocoderConfig,
+)
 
 
 def _t(a) -> torch.Tensor:
@@ -153,4 +164,33 @@ def style_encoder_state_dict(params: Mapping[str, Any],
     for head in ("pitch_clf", "speed_clf", "energy_clf", "emotion_clf"):
         if head in params:
             out.dense(f"{head}.classifier", params[head])
+    return dict(out)
+
+
+def discriminator_state_dict(params: Mapping[str, Any], spectral: Mapping[str, Any],
+                             dcfg: DiscriminatorConfig) -> Dict[str, torch.Tensor]:
+    """JAX Discriminator params and spectral state -> port `Discriminator`
+    state dict."""
+    if "params" in params:
+        params = params["params"]
+    out = _Out()
+    n_convs = len(dcfg.period_channels) + 1
+    for i, p in enumerate(dcfg.periods):
+        tree, key = params[f"mpd_{p}"], f"mpd.discriminators.{i}"
+        for j in range(n_convs):
+            out.wn(f"{key}.convs.{j}", tree[f"convs_{j}"])
+        out.wn(f"{key}.conv_post", tree["conv_post"])
+    names = [(f"convs_{j}", f"convs.{j}") for j in range(len(dcfg.scale_layers))]
+    names.append(("conv_post", "conv_post"))
+    for i in range(dcfg.n_scales):
+        tree, key = params[f"msd_{i}"], f"msd.discriminators.{i}"
+        for name, sub in names:
+            k = f"{key}.{sub}"
+            if i == 0:  # spectral norm
+                out[f"{k}.weight_orig"] = _t(tree[name]["w"])
+                out[f"{k}.bias"] = _t(tree[name]["b"])
+                out[f"{k}.weight_u"] = _t(spectral[f"msd_{i}"][name]["u"])
+                out[f"{k}.weight_v"] = _t(spectral[f"msd_{i}"][name]["v"])
+            else:
+                out.wn(k, tree[name])
     return dict(out)

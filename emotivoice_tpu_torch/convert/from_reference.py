@@ -5,6 +5,9 @@ unwrapping, not conversion (layouts handled: see
 `emotivoice_tpu/convert/from_torch.py`):
   - ``g_{step:08d}``: {"generator": state_dict}, keys ``am.*`` and
     ``generator.*`` -> `JETSGenerator`;
+  - ``do_{step:08d}``: {"discriminator": state_dict, "optim_g", "optim_d",
+    ...} -> `Discriminator` (spectral-norm `weight_orig` / `weight_u` /
+    `weight_v` as they are; a checkpoint without u, v keeps the module's);
   - ``checkpoint_163431``: {"model": state_dict} with DataParallel
     ``module.`` prefixes -> `StyleEncoder`.
 Weight-normed convs are accepted under the parametrize naming
@@ -39,10 +42,8 @@ def _load(model: nn.Module, sd: Mapping[str, torch.Tensor], what: str) -> nn.Mod
     return model
 
 
-def load_jets_generator(model: nn.Module, ckpt: Mapping[str, Any]) -> nn.Module:
-    """Load a ``g_*`` checkpoint (or its bare state dict) into a port
-    `JETSGenerator`, in place."""
-    sd = strip_module_prefix(ckpt["generator"] if "generator" in ckpt else ckpt)
+def _weight_norm_names(model: nn.Module, sd: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Weight-norm keys of any of the three namings -> weight_g / weight_v."""
     wanted = model.state_dict().keys()
     out: Dict[str, torch.Tensor] = {}
     for k, v in sd.items():
@@ -55,7 +56,29 @@ def load_jets_generator(model: nn.Module, ckpt: Mapping[str, Any]) -> nn.Module:
                                                  keepdim=True))
         else:
             out[k] = v
-    return _load(model, out, "generator")
+    return out
+
+
+def load_jets_generator(model: nn.Module, ckpt: Mapping[str, Any]) -> nn.Module:
+    """Load a ``g_*`` checkpoint (or its bare state dict) into a port
+    `JETSGenerator`, in place."""
+    sd = strip_module_prefix(ckpt["generator"] if "generator" in ckpt else ckpt)
+    return _load(model, _weight_norm_names(model, sd), "generator")
+
+
+def load_discriminator(model: nn.Module, ckpt: Mapping[str, Any]) -> nn.Module:
+    """Load a ``do_*`` checkpoint (or its bare state dict) into a port
+    `Discriminator`, in place. Spectral-norm u, v the checkpoint lacks keep
+    the module's values (power iteration re-estimates them)."""
+    sd = strip_module_prefix(ckpt["discriminator"] if "discriminator" in ckpt else ckpt)
+    own = model.state_dict()
+    # a plain `weight` under spectral norm is its weight_orig
+    sd = {f"{k}_orig" if f"{k}_orig" in own else k: v for k, v in sd.items()}
+    out = _weight_norm_names(model, sd)
+    for k in own:
+        if k.endswith((".weight_u", ".weight_v")) and k not in out and k[:-2] + "_orig" in own:
+            out[k] = own[k]
+    return _load(model, out, "discriminator")
 
 
 def load_style_encoder(model: nn.Module, ckpt: Mapping[str, Any]) -> nn.Module:

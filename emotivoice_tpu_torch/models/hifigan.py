@@ -8,13 +8,18 @@ reference's keys and normalisation axes:
     default-dim quirk, kept for parity).
 Inference folds W = g * v / ||v|| at each call.
 
-The MRF blocks run through the port's hand-written kernels: a stage with
-C >= 128 sends each residual unit through `fused_residual_unit`
-(3 ResBlock1 x 3 units = 9 launches), a stage with C < 128 sends the whole
-MRF through `fused_mrf_stage` (1 launch). Why the split: a whole stage's 18
-conv weights are ~16.5 MB in bf16 at C=256, which no SM holds, while one
-unit's weights stream through L2. On a CPU tensor the same calls take the
-kernels' plain versions. Activations are feature-last (B, T, C).
+With `kernels=True` (serving, synthesis, validation) the MRF blocks run
+through the port's hand-written kernels: a stage with C >= 128 sends each
+residual unit through `fused_residual_unit` (3 ResBlock1 x 3 units = 9
+launches), a stage with C < 128 sends the whole MRF through
+`fused_mrf_stage` (1 launch). Why the split: a whole stage's 18 conv weights
+are ~16.5 MB in bf16 at C=256, which no SM holds, while one unit's weights
+stream through L2. On a CPU tensor the same calls take the kernels' plain
+versions. The kernels have no backward (nor have the TPU kernels, which the
+JAX package's training turns off with use_pallas / use_fused_stage), so the
+trainer builds the generator with `kernels=False`: every ResBlock1 conv is
+then a differentiable `WNConv1d`, the JAX package's default branch.
+Activations are feature-last (B, T, C).
 """
 
 from __future__ import annotations
@@ -27,7 +32,7 @@ from torch import nn
 
 from emotivoice_tpu_torch.config import VocoderConfig
 from emotivoice_tpu_torch.ops.cuda.mrf_stage import fused_mrf_stage
-from emotivoice_tpu_torch.ops.cuda.resblock import fused_residual_unit
+from emotivoice_tpu_torch.ops.cuda.resblock import fused_residual_unit, lrelu
 
 LRELU_SLOPE = 0.1
 FUSED_UNIT_MIN_CHANNELS = 128  # C at or above: per-unit kernel; below: whole stage
@@ -42,7 +47,7 @@ class WeightNorm(nn.Module):
 
     def __init__(self, v_shape: Sequence[int], n_out: int):
         super().__init__()
-        self.weight_g = nn.Parameter(torch.ones(v_shape[0], 1, 1))
+        self.weight_g = nn.Parameter(torch.ones(v_shape[0], *(1,) * (len(v_shape) - 1)))
         self.weight_v = nn.Parameter(torch.zeros(*v_shape))
         self.bias = nn.Parameter(torch.zeros(n_out))
 
@@ -91,7 +96,7 @@ class WNConvTranspose1d(WeightNorm):
 class ResBlock1(nn.Module):
     """MRF residual block (reference models.py:26-64): per dilation d,
     x = x + conv_{k,1}(lrelu(conv_{k,d}(lrelu(x)))), each unit one
-    `fused_residual_unit` call."""
+    `fused_residual_unit` call, or with `kernels=False` two WNConv1d calls."""
 
     def __init__(self, channels: int, kernel_size: int, dilations: Sequence[int]):
         super().__init__()
@@ -112,7 +117,11 @@ class ResBlock1(nn.Module):
             for c1, c2 in zip(self.convs1, self.convs2)
         )
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, kernels: bool = True) -> torch.Tensor:
+        if not kernels:
+            for c1, c2 in zip(self.convs1, self.convs2):
+                x = x + c2(lrelu(c1(lrelu(x))))
+            return x
         x = x.contiguous()
         for d, (w1, b1, w2, b2) in zip(self.dilations, self.unit_weights(x.dtype)):
             x = fused_residual_unit(x, w1, b1, w2, b2, self.kernel_size, d)
@@ -136,11 +145,14 @@ class ResBlock2(nn.Module):
 
 class HiFiGANGenerator(nn.Module):
     """Reference Generator (models.py:90-140). Input (B, T, n_mels) mel,
-    output (B, T * prod(upsample_rates)) f32 waveform in (-1, 1)."""
+    output (B, T * prod(upsample_rates)) f32 waveform in (-1, 1).
+    `kernels` picks the MRF's path: the hand-written kernels (inference
+    only) or differentiable plain convs (training)."""
 
-    def __init__(self, cfg: VocoderConfig):
+    def __init__(self, cfg: VocoderConfig, kernels: bool = True):
         super().__init__()
         self.cfg = cfg
+        self.kernels = kernels
         c = cfg
         self.conv_pre = WNConv1d(c.initial_channel, c.upsample_initial_channel, 7, padding=3)
         self.ups = nn.ModuleList()
@@ -159,14 +171,14 @@ class HiFiGANGenerator(nn.Module):
         c = self.cfg
         nk = len(c.resblock_kernel_sizes)
         blocks = self.resblocks[i * nk:(i + 1) * nk]
-        x = x.contiguous()
-        if c.resblock == "1" and x.shape[-1] < FUSED_UNIT_MIN_CHANNELS:
+        if self.kernels and c.resblock == "1" and x.shape[-1] < FUSED_UNIT_MIN_CHANNELS:
             weights = tuple(b.unit_weights(x.dtype) for b in blocks)
-            return fused_mrf_stage(x, weights, c.resblock_kernel_sizes,
+            return fused_mrf_stage(x.contiguous(), weights, c.resblock_kernel_sizes,
                                    c.resblock_dilation_sizes)
+        kw = {"kernels": self.kernels} if c.resblock == "1" else {}
         acc = None
         for block in blocks:
-            r = block(x)
+            r = block(x, **kw)
             acc = r if acc is None else acc + r
         return acc / nk
 

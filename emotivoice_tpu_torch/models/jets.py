@@ -1,14 +1,14 @@
-"""JETS joint model, inference: PromptTTS acoustic model + HiFi-GAN
-generator (counterpart of `emotivoice_tpu/models/jets.py`; reference
-`models/prompt_tts_modified/jets.py:26-71`). Inference vocodes the full
-bucketed mel (the JAX model's `cut=False`); the training crop is a later
-slice.
+"""JETS joint model: PromptTTS acoustic model + HiFi-GAN generator
+(counterpart of `emotivoice_tpu/models/jets.py`; reference
+`models/prompt_tts_modified/jets.py:26-71`). Training (`mel_targets` given,
+`cut=True`) vocodes a random `segment_size`-frame crop of the decoder
+output; inference and validation (`cut=False`) vocode the whole mel.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict
+from typing import Any, Dict, Optional
 
 import torch
 from torch import nn
@@ -19,15 +19,21 @@ from emotivoice_tpu_torch.models.hifigan import (
     HiFiGANGenerator,
     WNConvTranspose1d,
     WeightNorm,
+    _norm_except_dim0,
 )
+from emotivoice_tpu_torch.ops.segments import get_random_segments
 
 
 class JETSGenerator(nn.Module):
-    def __init__(self, cfg: EmotiVoiceConfig):
+    """`kernels` is the vocoder's switch (`HiFiGANGenerator`): True for
+    serving, synthesis and validation, False for the trainer, whose
+    backward the kernels do not have."""
+
+    def __init__(self, cfg: EmotiVoiceConfig, kernels: bool = True):
         super().__init__()
         self.cfg = cfg
         self.am = PromptTTS(cfg.am)
-        self.generator = HiFiGANGenerator(cfg.vocoder)
+        self.generator = HiFiGANGenerator(cfg.vocoder, kernels)
 
     @property
     def upsample_factor(self) -> int:
@@ -41,17 +47,34 @@ class JETSGenerator(nn.Module):
         style_embedding: torch.Tensor,
         content_embedding: torch.Tensor,
         *,
-        max_frames: int,
+        max_frames: Optional[int] = None,
         alpha: float = 1.0,
         dtype: torch.dtype = torch.float32,
-    ) -> Dict[str, torch.Tensor]:
+        mel_targets: Optional[torch.Tensor] = None,
+        feats_lengths: Optional[torch.Tensor] = None,
+        pitch_targets: Optional[torch.Tensor] = None,
+        energy_targets: Optional[torch.Tensor] = None,
+        cut: bool = True,
+        segment_generator: Optional[torch.Generator] = None,
+        start_idxs: Optional[torch.Tensor] = None,
+    ) -> Dict[str, Any]:
         """`dtype` is the compute dtype (float32 or bfloat16); parameters
-        stay f32 and the waveform leaves f32."""
+        stay f32 and the waveform leaves f32. In training with `cut`, the
+        crop's start frames are drawn from `segment_generator`, or taken
+        from `start_idxs` when given (to replay another run's draw)."""
         out = self.am(
             tokens, text_lengths, speaker, style_embedding, content_embedding,
-            max_frames=max_frames, alpha=alpha, dtype=dtype,
+            max_frames=max_frames, alpha=alpha, mel_targets=mel_targets,
+            feats_lengths=feats_lengths, pitch_targets=pitch_targets,
+            energy_targets=energy_targets, dtype=dtype,
         )
-        out["wav_predictions"] = self.generator(out["dec_outputs"], dtype=dtype)
+        z = out["dec_outputs"]
+        out["z_start_idxs"] = None
+        if mel_targets is not None and cut:
+            z, out["z_start_idxs"] = get_random_segments(
+                z, out["output_lengths"], self.cfg.train.segment_size, segment_generator,
+                start_idxs)
+        out["wav_predictions"] = self.generator(z, dtype=dtype)
         return out
 
 
@@ -79,6 +102,5 @@ def init_random_(model: nn.Module, seed: int = 0) -> nn.Module:
                     fan_in = p.shape[0] * p.shape[2] // mod.stride
                 p.copy_(torch.randn(p.shape, generator=gen) / math.sqrt(fan_in))
         if isinstance(mod, WeightNorm):
-            v = mod.weight_v
-            mod.weight_g.copy_(torch.sqrt(torch.sum(v * v, dim=(1, 2), keepdim=True)))
+            mod.weight_g.copy_(_norm_except_dim0(mod.weight_v))
     return model

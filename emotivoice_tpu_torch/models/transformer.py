@@ -12,7 +12,10 @@ Conventions shared by every module of the port:
   - parameters are stored f32 and cast to the activation dtype at use, so a
     bf16 input runs bf16 compute without touching the checkpoint
     (LayerNorm statistics stay f32);
-  - inference only: dropout is the identity and is not modelled.
+  - dropout sits where the JAX package's does (positional encoding,
+    attention weights, both residual branches, inside the FFN), at the
+    rate the caller gives; it acts in `train()` mode only, so an `eval()`
+    model (serving) is deterministic.
 """
 
 from __future__ import annotations
@@ -78,11 +81,12 @@ def sinusoid_table(max_len: int, d_model: int) -> np.ndarray:
 class ScaledPositionalEncoding(nn.Module):
     """x + alpha * PE with a learned scalar alpha (reference encoder.py:246-261)."""
 
-    def __init__(self, d_model: int, max_len: int = 5000):
+    def __init__(self, d_model: int, max_len: int = 5000, dropout: float = 0.0):
         super().__init__()
         self.d_model = d_model
         self.max_len = max_len
         self.alpha = nn.Parameter(torch.ones(()))
+        self.dropout = nn.Dropout(dropout)
         self.register_buffer(
             "pe", torch.from_numpy(sinusoid_table(max_len, d_model)),
             persistent=False,
@@ -93,7 +97,7 @@ class ScaledPositionalEncoding(nn.Module):
         pe = self.pe
         if t > pe.shape[0]:
             pe = torch.from_numpy(sinusoid_table(t, self.d_model)).to(x.device)
-        return x + self.alpha.to(x.dtype) * pe[None, :t].to(x.dtype)
+        return self.dropout(x + self.alpha.to(x.dtype) * pe[None, :t].to(x.dtype))
 
 
 class MultiHeadedAttention(nn.Module):
@@ -102,9 +106,10 @@ class MultiHeadedAttention(nn.Module):
     Plain matmul + softmax, the same math as the JAX einsums: masked keys get
     NEG_INF before the softmax and exactly 0 after it."""
 
-    def __init__(self, n_heads: int, d_model: int):
+    def __init__(self, n_heads: int, d_model: int, dropout: float = 0.0):
         super().__init__()
         self.n_heads = n_heads
+        self.dropout = nn.Dropout(dropout)
         self.d_k = d_model // n_heads
         self.linear_q = Linear(d_model, d_model)
         self.linear_k = Linear(d_model, d_model)
@@ -127,47 +132,50 @@ class MultiHeadedAttention(nn.Module):
         attn = torch.softmax(scores, dim=-1)
         if valid_mask is not None:
             attn = attn.masked_fill(~key_mask, 0.0)
-        out = torch.matmul(attn.to(v.dtype), v)
+        out = torch.matmul(self.dropout(attn).to(v.dtype), v)
         out = out.transpose(1, 2).reshape(b, t, d)
         return self.linear_out(out)
 
 
 class ConvFFN(nn.Module):
-    """MultiLayeredConv1d: conv k -> exact-erf GELU -> conv k."""
+    """MultiLayeredConv1d: conv k -> exact-erf GELU -> dropout -> conv k."""
 
-    def __init__(self, d_model: int, d_hidden: int, kernel_size: int):
+    def __init__(self, d_model: int, d_hidden: int, kernel_size: int, dropout: float = 0.0):
         super().__init__()
         self.w_1 = Conv1dSame(d_model, d_hidden, kernel_size)
         self.w_2 = Conv1dSame(d_hidden, d_model, kernel_size)
+        self.dropout = nn.Dropout(dropout)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.w_2(F.gelu(self.w_1(x), approximate="none"))
+        return self.w_2(self.dropout(F.gelu(self.w_1(x), approximate="none")))
 
 
 class EncoderLayer(nn.Module):
     """Pre-LN block (reference encoder.py:129-200, normalize_before=True)."""
 
-    def __init__(self, d_model: int, n_heads: int, d_ffn: int, kernel_size: int):
+    def __init__(self, d_model: int, n_heads: int, d_ffn: int, kernel_size: int,
+                 dropout: float = 0.0):
         super().__init__()
-        self.self_attn = MultiHeadedAttention(n_heads, d_model)
-        self.feed_forward = ConvFFN(d_model, d_ffn, kernel_size)
+        self.self_attn = MultiHeadedAttention(n_heads, d_model, dropout)
+        self.feed_forward = ConvFFN(d_model, d_ffn, kernel_size, dropout)
         self.norm1 = LayerNorm(d_model)
         self.norm2 = LayerNorm(d_model)
+        self.dropout = nn.Dropout(dropout)
 
     def forward(self, x: torch.Tensor, valid_mask: Optional[torch.Tensor]) -> torch.Tensor:
-        x = x + self.self_attn(self.norm1(x), valid_mask)
-        return x + self.feed_forward(self.norm2(x))
+        x = x + self.dropout(self.self_attn(self.norm1(x), valid_mask))
+        return x + self.dropout(self.feed_forward(self.norm2(x)))
 
 
 class TransformerEncoder(nn.Module):
     """Reference `Encoder` (encoder.py:263-324): ScaledPE -> N blocks -> LN."""
 
     def __init__(self, d_model: int, n_heads: int, n_layers: int,
-                 kernel_size: int = 3, max_len: int = 5000):
+                 kernel_size: int = 3, max_len: int = 5000, dropout: float = 0.0):
         super().__init__()
-        self.embed = nn.Sequential(ScaledPositionalEncoding(d_model, max_len))
+        self.embed = nn.Sequential(ScaledPositionalEncoding(d_model, max_len, dropout))
         self.encoders = nn.ModuleList(
-            EncoderLayer(d_model, n_heads, d_model * 4, kernel_size)
+            EncoderLayer(d_model, n_heads, d_model * 4, kernel_size, dropout)
             for _ in range(n_layers)
         )
         self.after_norm = LayerNorm(d_model)

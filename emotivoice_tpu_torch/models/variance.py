@@ -19,15 +19,17 @@ from emotivoice_tpu_torch.utils.masks import NEG_INF
 
 
 class _ConvReluLnStack(nn.ModuleList):
-    """n x (conv k -> ReLU -> LayerNorm); index 1 of each entry is the ReLU
-    slot of the reference's Sequential, so the LayerNorm sits at `.2`."""
+    """n x (conv k -> ReLU -> LayerNorm -> dropout), the reference's
+    Sequential: the LayerNorm sits at `.2`."""
 
-    def __init__(self, n_layers: int, c_in: int, n_chans: int, kernel_size: int):
+    def __init__(self, n_layers: int, c_in: int, n_chans: int, kernel_size: int,
+                 dropout: float = 0.0):
         super().__init__(
             nn.Sequential(
                 Conv1dSame(c_in if i == 0 else n_chans, n_chans, kernel_size),
                 nn.ReLU(),
                 LayerNorm(n_chans),
+                nn.Dropout(dropout),
             )
             for i in range(n_layers)
         )
@@ -41,9 +43,10 @@ class _ConvReluLnStack(nn.ModuleList):
 class VariancePredictor(nn.Module):
     """Pitch / energy predictor (reference variance.py:68-123)."""
 
-    def __init__(self, c_in: int, n_layers: int, n_chans: int, kernel_size: int):
+    def __init__(self, c_in: int, n_layers: int, n_chans: int, kernel_size: int,
+                 dropout: float = 0.0):
         super().__init__()
-        self.conv = _ConvReluLnStack(n_layers, c_in, n_chans, kernel_size)
+        self.conv = _ConvReluLnStack(n_layers, c_in, n_chans, kernel_size, dropout)
         self.linear = Linear(n_chans, 1)
 
     def forward(self, x: torch.Tensor,
@@ -67,14 +70,14 @@ class DurationPredictor(VariancePredictor):
 
 
 class VarianceEmbedding(nn.Sequential):
-    """Conv1d k9 embedding of a scalar track back into the hidden dim
-    (reference model_open_source.py:63-70 pitch_embed / energy_embed)."""
+    """Conv1d k9 embedding of a scalar track back into the hidden dim, then
+    dropout (reference model_open_source.py:63-70 pitch_embed / energy_embed)."""
 
-    def __init__(self, features: int, kernel_size: int = 9):
-        super().__init__(Conv1dSame(1, features, kernel_size))
+    def __init__(self, features: int, kernel_size: int = 9, dropout: float = 0.0):
+        super().__init__(Conv1dSame(1, features, kernel_size), nn.Dropout(dropout))
 
     def forward(self, track: torch.Tensor) -> torch.Tensor:
-        return self[0](track[..., None])  # (B, T) -> (B, T, features)
+        return self[1](self[0](track[..., None]))  # (B, T) -> (B, T, features)
 
 
 class AlignmentModule(nn.Module):

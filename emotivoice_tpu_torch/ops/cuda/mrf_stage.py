@@ -12,7 +12,8 @@ the tensor cores: bf16 through `csrc/mma_conv.cuh`, f32 as a 3xTF32 split
 through `csrc/mma_conv_f32.cuh`).
 
 `fused_mrf_stage` launches the kernel for a CUDA tensor and takes the plain
-version for a CPU tensor; any other device, dtype or shape raises.
+version for a CPU tensor; any other device, dtype or shape raises, and so
+does an operand that requires grad while grad is enabled (no backward).
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ from emotivoice_tpu_torch.ops.cuda.resblock import (
     CHANNELS,
     SMEM_LIMIT,
     check_operands,
+    refuse_grad,
     residual_unit_3xtf32,
     residual_unit_plain,
     ring_rows,
@@ -97,7 +99,9 @@ def stage_tile(c: int, halo: int, t: int, dtype: torch.dtype = torch.float32) ->
 
 def fused_mrf_stage(x, weights: StageWeights, kernel_sizes: Sequence[int],
                     dilation_sizes: Sequence[Sequence[int]]) -> torch.Tensor:
-    """One whole MRF stage on (B, T, C); weights in x's dtype, HIO layout."""
+    """One whole MRF stage on (B, T, C); weights in x's dtype, HIO layout.
+    Refuses operands that require grad while grad is enabled."""
+    refuse_grad("fused_mrf_stage", [x] + [t for units in weights for u in units for t in u])
     if x.device.type == "cpu":
         return mrf_stage_plain(x, weights, kernel_sizes, dilation_sizes)
     if x.device.type != "cuda":

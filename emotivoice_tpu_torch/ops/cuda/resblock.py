@@ -10,7 +10,8 @@ convs run on the tensor cores: bf16 through `csrc/mma_conv.cuh`, f32 as a
 3xTF32 split through `csrc/mma_conv_f32.cuh`).
 
 `fused_residual_unit` launches the kernel for a CUDA tensor and takes the
-plain version for a CPU tensor; any other device, dtype or shape raises.
+plain version for a CPU tensor; any other device, dtype or shape raises, and
+so does an operand that requires grad while grad is enabled (no backward).
 """
 
 from __future__ import annotations
@@ -198,9 +199,22 @@ def check_operands(name: str, x: torch.Tensor, tensors, shapes) -> None:
             raise ValueError(f"{name}: operands must be 16-byte aligned")
 
 
+def refuse_grad(name: str, tensors) -> None:
+    """The kernels have no backward (nor have the TPU kernels they replace):
+    with grad enabled, an operand that requires grad is an error on every
+    device, never an output silently cut from the graph. Training runs the
+    differentiable plain convs (`HiFiGANGenerator(kernels=False)`)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name} has no backward: call it under torch.no_grad() or "
+            "torch.inference_mode(), or build the generator with kernels=False")
+
+
 def fused_residual_unit(x, w1, b1, w2, b2, k: int, d: int) -> torch.Tensor:
     """One ResBlock1 residual unit on (B, T, C); w1, w2 HIO (K, C, C) with
-    weight norm folded, b1, b2 (C,), all in x's dtype."""
+    weight norm folded, b1, b2 (C,), all in x's dtype. Refuses operands
+    that require grad while grad is enabled (`refuse_grad`)."""
+    refuse_grad("fused_residual_unit", (x, w1, b1, w2, b2))
     if x.device.type == "cpu":
         return residual_unit_plain(x, w1, b1, w2, b2, k, d)
     if x.device.type != "cuda":

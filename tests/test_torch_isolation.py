@@ -11,6 +11,11 @@ import textwrap
 import test_torch_support  # noqa: F401  (one intra-op thread per worker)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+TRAINING_SLICE = {f"emotivoice_tpu_torch.{m}" for m in (
+    "ops.stft", "ops.mel", "ops.pitch", "ops.segments", "ops.align",
+    "models.discriminator", "training", "training.losses", "training.step",
+    "training.validate", "training.loop", "data", "data.dataset", "data.synthetic_corpus",
+    "train")}
 PKG = os.path.join(ROOT, "emotivoice_tpu_torch")
 
 
@@ -27,14 +32,17 @@ def test_every_port_module_imports_without_jax():
             importlib.import_module(n)
         leaked = sorted(m for m in sys.modules
                         if m == "emotivoice_tpu" or m.startswith("emotivoice_tpu."))
-        print(len(names), leaked)
+        print(" ".join(names))
+        print(leaked)
         assert not leaked, leaked
     """)
     res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          timeout=300, cwd=ROOT)
     assert res.returncode == 0, res.stderr
-    n, leaked = res.stdout.split(" ", 1)
-    assert int(n) >= 40 and leaked.strip() == "[]"
+    names, leaked = res.stdout.strip().splitlines()[-2:]
+    names = set(names.split())
+    assert len(names) >= 56 and leaked == "[]"
+    assert TRAINING_SLICE <= names, sorted(TRAINING_SLICE - names)
 
 
 def test_no_source_line_imports_jax_or_the_jax_package():

@@ -175,9 +175,11 @@ def test_prompt_tts_inference(setup):
 
 
 def test_prompt_tts_training_branch_raises(setup):
+    """The training branch (tests/test_torch_align.py) needs all of its
+    targets beside mel_targets."""
     model = setup[3]
     z = torch.zeros(1, 4, dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="training slice"):
+    with pytest.raises(ValueError, match="feats_lengths, pitch_targets"):
         model.am(z, torch.tensor([4]), torch.tensor([0]),
                  torch.zeros(1, 12), torch.zeros(1, 12),
                  mel_targets=torch.zeros(1, 8, 20))

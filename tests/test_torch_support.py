@@ -52,6 +52,8 @@ def _fill(path, leaf, rng, mrf_scale):
         return 0.02 * rng.randn(*shape)
     if name == "kernel":  # flax Dense / Conv: (..., in, out)
         return rng.randn(*shape) / np.sqrt(np.prod(shape[:-1]))
+    if name == "w":  # spectral-norm weight, torch layout (Co, Ci/g, K)
+        return rng.randn(*shape) / np.sqrt(np.prod(shape[1:]))
     if name == "v":  # weight-norm direction, torch layout
         if any(p.startswith("resblocks") for p in path):
             return rng.randn(*shape) * mrf_scale
@@ -185,3 +187,53 @@ def port_style_encoder(bert_cfg, params):
     model = StyleEncoder(bert_cfg)
     model.load_state_dict(style_encoder_state_dict(params, bert_cfg.num_layers))
     return model.eval()
+
+
+def train_configs(**train):
+    """(JAX config, port config) for the training tests: tiny_test_config
+    with every dropout rate 0 and a second MSD scale (weight norm, behind
+    the average pool), `train` replacing TrainConfig fields."""
+    import dataclasses
+
+    out = []
+    for mod in (jcfg, tcfg):
+        c = mod.tiny_test_config()
+        c = c.replace(
+            am=dataclasses.replace(c.am, encoder_p_dropout=0.0, decoder_p_dropout=0.0,
+                                   variance_p_dropout=0.0, duration_p_dropout=0.0,
+                                   variance_embed_p_dropout=0.0),
+            disc=dataclasses.replace(c.disc, n_scales=2),
+            train=dataclasses.replace(c.train, **train))
+        out.append(c)
+    return tuple(out)
+
+
+def jax_disc_variables(dcfg, seed: int):
+    """JAX Discriminator params with seeded numpy values, and the spectral
+    collection as the JAX package initialises it (u, v of unit norm from
+    RandomState(0), u first)."""
+    from emotivoice_tpu.models.hifigan import Discriminator
+
+    y = np.zeros((1, 512), np.float32)
+    shapes = jax.eval_shape(lambda: Discriminator(dcfg).init(jax.random.PRNGKey(0), y, y))
+    params = random_params(shapes["params"], seed)
+
+    def unit(rs, n):
+        x = rs.randn(n).astype(np.float32)
+        return x / np.linalg.norm(x)
+
+    spectral = {}
+    for name, node in shapes["spectral"]["msd_0"].items():
+        rs = np.random.RandomState(0)
+        spectral[name] = {"u": unit(rs, node["u"].shape[0]), "v": unit(rs, node["v"].shape[0])}
+    return params, {"msd_0": spectral}
+
+
+def port_discriminator(tcfg_, params, spectral):
+    """Port Discriminator on the CPU loaded from JAX variables."""
+    from emotivoice_tpu_torch.convert.from_jax import discriminator_state_dict
+    from emotivoice_tpu_torch.models.discriminator import Discriminator
+
+    disc = Discriminator(tcfg_.disc)
+    disc.load_state_dict(discriminator_state_dict(params, spectral, tcfg_.disc))
+    return disc
