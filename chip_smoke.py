@@ -61,12 +61,39 @@ Phases (any failure exits non-zero and prints no result line):
                 segment starts): every loss and the gradient norms of named
                 parameters compared. Median step wall ms, steps/s, the
                 device split of a step (CUDA events), peak memory, mel loss
-                at the first and last step, validation ms per generator call;
-  9. summary  - a `kernels` JSON line, then the result line.
+                at the first and last step, validation ms per generator call.
+                The same in bf16 compute (f32 parameters, Adam states and
+                losses): steps/s, the device split and peak memory beside
+                f32, one bf16 step card vs CPU from the seeded parameters
+                (held; from the trained state only printed, since that
+                state differs from run to run). Then CURVE_STEPS steps at
+                batch 8 on a 48-utterance corpus in each dtype, validation
+                every 100 steps (both kernels in the run's dtype, 18 + 2
+                launches per call, held against their plain versions): the
+                mel loss's trend and steps/s;
+  9. dp_serve - a SynthesisEngine with two replicas on the card against
+                one replica at the bench bucket, f32 and bf16: durations
+                equal, waveforms within 2e-3 x max, 18 + 2 launches per
+                replica call, both kernels held against their plain
+                versions at each replica's shapes;
+  10. dp_train - two ranks (this script with --dp-worker, the torchrun
+                environment, gloo, both on cuda:0) against one process:
+                one step on one global batch of 16 rows (every loss and the
+                11 gradient norms to [train]'s tolerances, spectral u, v
+                equal on the ranks); then 10 steps of `python -m
+                emotivoice_tpu_torch.train --multihost` with rank-0 logging
+                and a checkpoint: steps/s, gradient all-reduce ms per step,
+                peak memory per rank, 0 kernel launches in the steps. Two
+                ranks on one card: no multi-GPU figure;
+  11. style_pretrain - the full-width style encoder: one PretrainStep card
+                vs CPU (dropout off), then `pretrain` for 5 steps at batch
+                16 (dropout on): ms per step;
+  12. summary - a `kernels` JSON line, then the result line.
 
 With --report, the detailed numbers are also written to PATH as JSON.
 With --profile, torch.profiler also measures the time the card is busy
-during one style-encoder forward and during a burst's embedding work.
+during one style-encoder forward, during a burst's embedding work and
+during one train step in each dtype (with its top kernels).
 """
 
 from __future__ import annotations
@@ -102,6 +129,11 @@ PEAK_BYTES = 3.35e12  # HBM3 bytes/s
 TOL_F32 = 2e-4  # max |kernel - plain| / max |plain|, f32 with TF32 off
 TOL_BF16 = 2e-2  # the same in bf16 (roundings at other places)
 TOL_CPU = 2e-3  # whole path, card vs CPU, / max |wav|
+# bf16, two replicas (8 rows each) vs one call on 16 rows: cuBLAS and cuDNN
+# may choose other kernels for 8 rows than for 16, and bf16 rounds those sums
+# differently (1.7e-2 of max at the bench bucket on an H100); the replicas are held at
+# TOL_CPU against one replica on the same 8-row halves
+TOL_DP_BF16 = 5e-2
 REPLAY_MAX_FRAMES = 6144  # batch x mel frames of a served call replayed on the CPU
 TRAIN_B, TRAIN_STEPS, TRAIN_CKPT, TRAIN_RESUMED_TO = 16, 30, 20, 36
 TOL_TRAIN_LOSS = 2e-3  # one train step, card vs CPU: each loss, relative
@@ -113,7 +145,12 @@ TRAIN_GRAD_PARAMS = (
     "generator.ups.3.weight_g", "mpd.discriminators.0.convs.0.weight_v",
     "mpd.discriminators.4.conv_post.weight_g", "msd.discriminators.0.convs.3.weight_orig",
     "msd.discriminators.2.convs.5.weight_v")
+TOL_TRAIN_LOSS_BF16 = 3e-2  # one bf16 train step, card vs CPU (cuDNN and oneDNN round
+TOL_TRAIN_GRAD_BF16 = 1e-1  # bf16 at other places): each loss / gradient norm, relative
+CURVE_B, CURVE_STEPS, CURVE_VALID = 8, 200, 100  # the 48-utterance runs in each dtype
+DP_RANKS, DP_GLOBAL_B, DP_CLI_STEPS = 2, 16, 10
 TOL_STYLE = 1e-4  # style encoder, card vs CPU, max |pooled| difference (tanh outputs, f32)
+TOL_PRETRAIN = 1e-4  # one pretraining step, card vs CPU: loss and gradient norms, relative
 V1_KS = (3, 7, 11)
 V1_DS = ((1, 3, 5),) * 3
 
@@ -394,6 +431,17 @@ def watch_stage_shapes(model):
     return shapes, [up.register_forward_hook(hook) for up in model.generator.ups]
 
 
+def launches_per_call(vc) -> tuple:
+    """(fused_residual_unit, fused_mrf_stage) launches of one generator call:
+    one per unit of a stage at C >= 128, one per stage below (18 + 2 for V1)."""
+    from emotivoice_tpu_torch.models.hifigan import FUSED_UNIT_MIN_CHANNELS
+
+    widths = [vc.upsample_initial_channel // 2 ** (i + 1) for i in range(len(vc.upsample_rates))]
+    units = sum(len(d) for d in vc.resblock_dilation_sizes)
+    wide = sum(c >= FUSED_UNIT_MIN_CHANNELS for c in widths)
+    return wide * units, len(widths) - wide
+
+
 def check_path_kernels(dev, model, shapes, tag: str) -> dict:
     """Both kernels against their plain versions at every shape a driven
     path gave them, in that path's dtype, with the model's own weights and
@@ -627,10 +675,10 @@ STYLE_TEXTS = ["Happy", "A calm and slow voice, a little sad.",
                "The quick brown fox jumps over the lazy dog!", "兴奋"]
 
 
-def device_busy_ms(fn):
-    """Milliseconds the card spends in kernels and copies while `fn` runs,
-    summed from a torch.profiler trace (None if the trace holds no device
-    time)."""
+def device_kernels(fn, top: int = 0):
+    """(milliseconds the card spends in kernels and copies while `fn` runs,
+    summed from a torch.profiler trace, or None if the trace holds no device
+    time; the `top` device entries by time as (name, ms, calls))."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -640,9 +688,16 @@ def device_busy_ms(fn):
         torch.cuda.synchronize()
     # Device-side events only: a host-side operator's entry repeats the time
     # of the kernels it launched.
-    total = sum(e.self_device_time_total for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA)
-    return total / 1e3 if total > 0 else None
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    total = sum(e.self_device_time_total for e in events)
+    ranked = sorted(events, key=lambda e: -e.self_device_time_total)[:top]
+    return (total / 1e3 if total > 0 else None,
+            [(e.key[:90], e.self_device_time_total / 1e3, e.count) for e in ranked])
+
+
+def device_busy_ms(fn):
+    """The card's busy milliseconds while `fn` runs (`device_kernels`)."""
+    return device_kernels(fn)[0]
 
 
 def phase_style(dev, profiled: bool):
@@ -1196,11 +1251,12 @@ def step_split_ms(trainer, batch, reps: int = 3) -> dict:
     return {k: float(np.median(v)) for k, v in parts.items()}
 
 
-def train_step_card_vs_cpu(cfg, trainer, batch) -> dict:
-    """One step from the same state (models copied, fresh optimizers) and
-    batch (its first 2 rows) on the card and on the CPU, dropout off, the
-    same segment starts: every loss and the gradient norms of
-    TRAIN_GRAD_PARAMS, relative to the CPU's."""
+def train_step_card_vs_cpu(cfg, models, batch, dtype=torch.float32) -> dict:
+    """One step from the same state (copies of the (generator, discriminator)
+    `models`, fresh optimizers) and batch (its first 2 rows) on the batch's
+    card and on the CPU, in compute `dtype`, dropout off, the same segment
+    starts: every loss and the gradient norms of TRAIN_GRAD_PARAMS, relative
+    to the CPU's."""
     from emotivoice_tpu_torch.models.discriminator import Discriminator
     from emotivoice_tpu_torch.models.jets import JETSGenerator
     from emotivoice_tpu_torch.ops.segments import random_starts
@@ -1208,17 +1264,17 @@ def train_step_card_vs_cpu(cfg, trainer, batch) -> dict:
 
     rows = {k: v[:2] for k, v in batch.items()}
     starts = random_starts(rows["mel_lengths"], cfg.train.segment_size).cpu()
-    g_state = {k: v.detach().cpu() for k, v in trainer.model.state_dict().items()}
-    d_state = {k: v.detach().cpu() for k, v in trainer.disc.state_dict().items()}
+    g_state = {k: v.detach().cpu() for k, v in models[0].state_dict().items()}
+    d_state = {k: v.detach().cpu() for k, v in models[1].state_dict().items()}
     got = {}
-    card_dev = next(trainer.model.parameters()).device
+    card_dev = rows["tokens"].device
     for name, device in (("card", card_dev), ("cpu", torch.device("cpu"))):
         model = JETSGenerator(cfg, kernels=False)
         model.load_state_dict(g_state)
-        disc = Discriminator(cfg.disc)
+        disc = Discriminator(cfg.disc, dtype)
         disc.load_state_dict(d_state)
         model, disc = model.to(device).eval(), disc.to(device).eval()
-        step = TrainStep(cfg, model, disc)
+        step = TrainStep(cfg, model, disc, dtype=dtype)
         t0 = time.perf_counter()
         metrics = step({k: v.to(device) for k, v in rows.items()}, start_idxs=starts)
         secs = time.perf_counter() - t0
@@ -1233,7 +1289,7 @@ def train_step_card_vs_cpu(cfg, trainer, batch) -> dict:
     return dict(card=card, cpu=cpu, loss_rel_err=loss_err, grad_rel_err=grad_err)
 
 
-def phase_train(dev) -> dict:
+def phase_train(dev, profiled: bool = False) -> dict:
     import contextlib
     import emotivoice_tpu_torch.training.validate as validate_mod
     from emotivoice_tpu_torch.data.dataset import BucketedLoader, PromptTTSDataset
@@ -1356,24 +1412,46 @@ def phase_train(dev) -> dict:
 
         # Steady-state step time, and its split, on a fixed batch.
         batch = to_device(next(iter(loader())), dev)
-        walls = []
-        for i in range(6):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            trainer(batch)
-            torch.cuda.synchronize()
-            walls.append((time.perf_counter() - t0) * 1e3)
-        wall_ms = float(np.median(walls[1:]))
-        split = step_split_ms(trainer, batch)
-        t_feats = int(batch["mel"].shape[1])
-        log(f"[train] step at batch {TRAIN_B} x {int(batch['tokens'].shape[1])} tokens x {t_feats} "
-            f"frames: median wall {wall_ms:.1f} ms ({1e3 / wall_ms:.2f} steps/s; runs "
-            + ", ".join(f"{w:.1f}" for w in walls) + ")")
-        log(f"[train] device ms of a step (CUDA events, median of 3): generator forward "
-            f"{split['generator_forward']:.1f} (alignment search inside), D step "
-            f"{split['d_step']:.1f}, G step (D on the fake, losses, backward, Adam) "
-            f"{split['g_step']:.1f}, whole {split['step']:.1f}; alone on the same log_p_attn: "
-            f"MAS {split['mas']:.1f} ({t_feats} frames), CTC {split['ctc']:.2f}")
+        from emotivoice_tpu_torch.training.step import TrainStep
+
+        steady = {}
+        for dname, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            disc.dtype = dtype  # the same weights; bf16 gets its own (fresh) Adam states
+            tr = trainer if dtype == torch.float32 else TrainStep(cfg, model, disc,
+                                                                  steps_per_epoch, dtype=dtype)
+            torch.cuda.reset_peak_memory_stats(dev)
+            walls = []
+            for i in range(8):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                tr(batch)
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+            peak_step = torch.cuda.max_memory_allocated(dev)
+            # the first bf16 steps pay cuDNN's choice of kernels for new shapes
+            wall_ms = float(np.median(walls[2:]))
+            split = step_split_ms(tr, batch)
+            steady[dname] = dict(walls=walls, wall_ms=wall_ms, split=split, peak_bytes=peak_step)
+            if profiled:
+                busy, top = device_kernels(lambda: tr(batch), top=8)
+                steady[dname].update(device_busy_ms=busy, top_kernels=top)
+                log(f"[train] {dname} step, torch.profiler: the card is busy "
+                    + (f"{busy:.1f} ms" if busy else "for a time the profiler did not see")
+                    + "; most device time: " + "; ".join(
+                        f"{name} {ms:.1f} ms x{n}" for name, ms, n in top))
+            t_feats = int(batch["mel"].shape[1])
+            log(f"[train] {dname} step at batch {TRAIN_B} x {int(batch['tokens'].shape[1])} tokens "
+                f"x {t_feats} frames: median wall of runs 3-8 {wall_ms:.1f} ms "
+                f"({1e3 / wall_ms:.2f} steps/s; runs " + ", ".join(f"{w:.1f}" for w in walls)
+                + f"); peak memory over these "
+                f"steps {peak_step / 2**30:.2f} GiB")
+            log(f"[train] {dname} device ms of a step (CUDA events, median of 3): generator "
+                f"forward {split['generator_forward']:.1f} (alignment search inside), D step "
+                f"{split['d_step']:.1f}, G step (D on the fake, losses, backward, Adam) "
+                f"{split['g_step']:.1f}, whole {split['step']:.1f}; alone on the same log_p_attn: "
+                f"MAS {split['mas']:.1f} ({t_feats} frames), CTC {split['ctc']:.2f}")
+        disc.dtype = torch.float32
+        walls, wall_ms, split = (steady["f32"][k] for k in ("walls", "wall_ms", "split"))
 
         # Validation time per generator call (kernels on, inference mode).
         vbatch = to_device(next(iter(BucketedLoader(valid_ds, TRAIN_B, shuffle=False,
@@ -1409,7 +1487,7 @@ def phase_train(dev) -> dict:
         if fused_residual_unit.launches or fused_mrf_stage.launches:
             fail("[train] the resumed train steps launched kernels")
 
-        cmp = train_step_card_vs_cpu(cfg, trainer, batch)
+        cmp = train_step_card_vs_cpu(cfg, (trainer.model, trainer.disc), batch)
         worst_loss = max(cmp["loss_rel_err"].items(), key=lambda kv: kv[1])
         worst_grad = max(cmp["grad_rel_err"].items(), key=lambda kv: kv[1])
         log(f"[train] one step card vs CPU (2 rows, dropout off, the same segment starts): "
@@ -1418,6 +1496,30 @@ def phase_train(dev) -> dict:
             f"over {len(TRAIN_GRAD_PARAMS)} parameters; {cmp['cpu']['seconds']:.1f} s on the CPU")
         if not (worst_loss[1] <= TOL_TRAIN_LOSS and worst_grad[1] <= TOL_TRAIN_GRAD):
             fail(f"[train] card and CPU disagree: {cmp['loss_rel_err']} {cmp['grad_rel_err']}")
+        # bf16 from the seeded parameters, which every run starts from: the
+        # trained state differs from run to run (the card's f32 sums are not
+        # bit-reproducible), and from it the bf16 roundings of the two
+        # devices reach several 1e-2 of some gradient norms, an amount that
+        # moves with the state; that comparison is printed, not held.
+        cmp16 = train_step_card_vs_cpu(cfg, build_models(cfg, torch.device("cpu")), batch,
+                                       torch.bfloat16)
+        cmp16_trained = train_step_card_vs_cpu(cfg, (trainer.model, trainer.disc), batch,
+                                               torch.bfloat16)
+        for what, c in (("from the seeded parameters", cmp16),
+                        (f"from the trained state (after {trainer.count} steps; not held)",
+                         cmp16_trained)):
+            worst_loss = max(c["loss_rel_err"].items(), key=lambda kv: kv[1])
+            worst_grad = max(c["grad_rel_err"].items(), key=lambda kv: kv[1])
+            log(f"[train] one bf16 step card vs CPU {what} (both in bf16, 2 rows, dropout off, "
+                f"the same segment starts): worst loss rel err {worst_loss[1]:.2e} "
+                f"({worst_loss[0]}; tol {TOL_TRAIN_LOSS_BF16}), worst grad-norm rel err "
+                f"{worst_grad[1]:.2e} ({worst_grad[0]}; tol {TOL_TRAIN_GRAD_BF16}); "
+                f"{c['cpu']['seconds']:.1f} s on the CPU")
+        worst_loss = max(cmp16["loss_rel_err"].values())
+        worst_grad = max(cmp16["grad_rel_err"].values())
+        if not (worst_loss <= TOL_TRAIN_LOSS_BF16 and worst_grad <= TOL_TRAIN_GRAD_BF16):
+            fail(f"[train] bf16: card and CPU disagree: {cmp16['loss_rel_err']} "
+                 f"{cmp16['grad_rel_err']}")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     report["train"] = dict(
@@ -1425,8 +1527,573 @@ def phase_train(dev) -> dict:
         launches_steps=in_steps, launches_valid=in_valid, valid_generator_calls=gen_calls,
         peak_bytes=peak, log=rows, u_moved=u_moved, step_wall_ms=walls,
         step_wall_ms_median=wall_ms, steps_per_s=1e3 / wall_ms, split_ms=split,
-        valid_ms=valid_ms, resumed_said=said, card_vs_cpu=cmp)
+        valid_ms=valid_ms, resumed_said=said, card_vs_cpu=cmp, steady=steady,
+        card_vs_cpu_bf16=cmp16, card_vs_cpu_bf16_trained=cmp16_trained)
     return dict(launches=in_valid, launches_steps=in_steps, path=path)
+
+
+def phase_train_curves(dev) -> dict:
+    """CURVE_STEPS steps at batch CURVE_B on a 48-utterance corpus (the size
+    of the JAX package's recorded run, docs/runs/TRAINING_RUN.md) in f32 and
+    in bf16 from the same seeded parameters, validation every CURVE_VALID
+    steps: losses finite, the mel loss's trend, steps/s; no kernel launch in
+    the steps, 18 + 2 per validation call, both kernels held against their
+    plain versions at validation's shapes in the run's dtype."""
+    import dataclasses
+
+    from emotivoice_tpu_torch.data.dataset import BucketedLoader, PromptTTSDataset
+    from emotivoice_tpu_torch.data.synthetic_corpus import main as make_corpus
+    from emotivoice_tpu_torch.frontend.tokens import TokenVocab, load_label_list
+    from emotivoice_tpu_torch.ops.cuda.mrf_stage import fused_mrf_stage
+    from emotivoice_tpu_torch.ops.cuda.resblock import fused_residual_unit
+    from emotivoice_tpu_torch.training.loop import build_models, train
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_curves_")
+    out, paths = {}, {}
+    try:
+        corpus = os.path.join(tmp, "corpus")
+        make_corpus(["--out", corpus, "--n-train", "48", "--n-valid", "8", "--n-speakers", "4",
+                     "--seed", str(SEED)])
+        vocab = TokenVocab.from_file(os.path.join(corpus, "tokenlist"))
+        speakers = load_label_list(os.path.join(corpus, "speakers"))
+        cfg = _train_cfg(len(vocab), len(speakers))
+        cfg = cfg.replace(train=dataclasses.replace(
+            cfg.train, batch_size=CURVE_B, iters_per_validation=CURVE_VALID,
+            iters_per_checkpoint=CURVE_STEPS))
+        zeros = np.zeros(cfg.am.bert_embedding, np.float32)
+        train_ds, valid_ds = (
+            PromptTTSDataset(os.path.join(corpus, name), cfg, vocab, speakers, lambda t: zeros,
+                             cache_dir=os.path.join(tmp, "cache"), device=dev)
+            for name in ("datalist.jsonl", "valid.jsonl"))
+        for ds in (train_ds, valid_ds):
+            for i in range(len(ds)):
+                ds[i]
+        for dname, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            valid_calls = []
+
+            def valid_loader():
+                valid_calls.append(dict(snapshot=(fused_residual_unit.launches,
+                                                  fused_mrf_stage.launches), batches=0))
+                for b in BucketedLoader(valid_ds, CURVE_B, shuffle=False, drop_last=False,
+                                        pad_to_batch=True):
+                    valid_calls[-1]["batches"] += 1
+                    yield b
+
+            model, disc = build_models(cfg, dev, dtype)
+            shapes = set()  # (B, T, C, dtype) handed to the kernels (validation only)
+
+            def on_up(_module, _args, y, _model=model, _shapes=shapes):
+                if _model.generator.kernels:
+                    _shapes.add((*y.shape, y.dtype))
+
+            hooks = [up.register_forward_hook(on_up) for up in model.generator.ups]
+            fused_residual_unit.launches = 0
+            fused_mrf_stage.launches = 0
+            torch.cuda.reset_peak_memory_stats(dev)
+            t0 = time.perf_counter()
+            try:
+                train(cfg, lambda: BucketedLoader(train_ds, CURVE_B, seed=SEED),
+                      os.path.join(tmp, dname), total_steps=CURVE_STEPS,
+                      steps_per_epoch=len(train_ds) // CURVE_B, valid_batch_iter_fn=valid_loader,
+                      log_every=1, device=dev, models=(model, disc), dtype=dtype)
+                torch.cuda.synchronize()
+            finally:
+                for h in hooks:
+                    h.remove()
+            wall = time.perf_counter() - t0
+            rows = _parse_log(os.path.join(tmp, dname, "log", "train_log.txt"))
+            steps = [r for r in rows if "g_loss" in r]
+            valid = [r for r in rows if "mel_l1" in r]
+            if len(steps) != CURVE_STEPS or len(valid) != CURVE_STEPS // CURVE_VALID:
+                fail(f"[train] {dname} curve: {len(steps)} steps, {len(valid)} validations")
+            for r in steps + valid:
+                if not all(np.isfinite(v) for v in r.values()):
+                    fail(f"[train] {dname} curve: non-finite loss at step {r['step']}: {r}")
+            in_steps = (valid_calls[0]["snapshot"][0], valid_calls[0]["snapshot"][1])
+            total = (fused_residual_unit.launches, fused_mrf_stage.launches)
+            gen_calls = sum(v["batches"] for v in valid_calls)
+            per_valid = (total[0] - in_steps[0], total[1] - in_steps[1])
+            per_call = launches_per_call(cfg.vocoder)
+            # the first CURVE_VALID steps ran before any validation
+            if in_steps != (0, 0) or per_valid != tuple(n * gen_calls for n in per_call):
+                fail(f"[train] {dname} curve: launches before validation {in_steps}, "
+                     f"in validation {per_valid} over {gen_calls} generator calls")
+
+            def mean_at(step, key="mel_loss", w=5):
+                return float(np.mean([r[key] for r in steps if step - w < r["step"] <= step]))
+
+            marks = (10, 50, 100, 150, 200)
+            curve = {k: [mean_at(s, k) for s in marks if s <= CURVE_STEPS]
+                     for k in ("mel_loss", "g_loss", "d_loss", "dur_loss")}
+            sps = float(np.median([r["steps_per_sec"] for r in steps[1:]]))
+            peak = torch.cuda.max_memory_allocated(dev)
+            out[dname] = dict(wall_s=wall, steps_per_s=sps, curve=curve, marks=marks,
+                              valid=[r["mel_l1"] for r in valid], peak_bytes=peak,
+                              launches_valid=dict(zip(("fused_residual_unit", "fused_mrf_stage"),
+                                                      per_valid)), valid_calls=gen_calls)
+            log(f"[train] {dname} curve, 48 utterances, batch {CURVE_B}, {CURVE_STEPS} steps in "
+                f"{wall:.1f} s ({sps:.2f} steps/s, log median), peak {peak / 2**30:.2f} GiB; "
+                f"mel_loss (mean of 5 steps) at steps {'/'.join(map(str, marks))}: "
+                + " -> ".join(f"{v:.3f}" for v in curve["mel_loss"])
+                + "; g_loss " + " -> ".join(f"{v:.1f}" for v in curve["g_loss"])
+                + "; d_loss " + " -> ".join(f"{v:.2f}" for v in curve["d_loss"])
+                + f"; valid mel_l1 {[round(r['mel_l1'], 4) for r in valid]}; validation "
+                f"launches {per_valid} over {gen_calls} generator calls")
+            if {s[3] for s in shapes} != {dtype}:
+                fail(f"[train] {dname} curve: validation handed the kernels {shapes}")
+            paths[dname] = check_path_kernels(dev, model, shapes, f"train_curve_{dname}")
+            del model, disc
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    report["train_curves"] = out
+    return dict(launches={k: v["launches_valid"] for k, v in out.items()}, paths=paths)
+
+
+# ---------------------------------------------------------------------------
+# 9. data-parallel serving: two engine replicas on the one card
+# ---------------------------------------------------------------------------
+
+def phase_dp_serve(dev, cfg, vocab, model) -> dict:
+    """A two-replica SynthesisEngine on the one card against the one-replica
+    engine, at the bench bucket, in f32 and bf16: equal durations, waveforms
+    within TOL_CPU x max, 18 + 2 launches per replica call, both kernels
+    held against their plain versions at every shape a replica gave them.
+    Both replicas share one card, so this shows the engine is right on the
+    device, not how it scales over cards."""
+    from emotivoice_tpu_torch.ops.cuda.mrf_stage import fused_mrf_stage
+    from emotivoice_tpu_torch.ops.cuda.resblock import fused_residual_unit
+    from emotivoice_tpu_torch.serving.engine import SynthesisEngine
+
+    rng = np.random.RandomState(SEED + 7)
+    d = cfg.am.bert_embedding
+    lengths = rng.randint(BENCH_T_TEXT // 2, BENCH_T_TEXT + 1, BENCH_B)
+    toks = rng.randint(2, len(vocab), (BENCH_B, BENCH_T_TEXT))
+    args = (toks, lengths, rng.randint(0, cfg.am.n_speaker, BENCH_B),
+            rng.randn(BENCH_B, d).astype(np.float32), rng.randn(BENCH_B, d).astype(np.float32))
+    audio_s = BENCH_B * BENCH_FRAMES * cfg.audio.hop_length / cfg.audio.sampling_rate
+    out, shapes, launches_total = {}, set(), {"fused_residual_unit": 0, "fused_mrf_stage": 0}
+    for dname in ("f32", "bf16"):
+        one = SynthesisEngine(cfg, model, vocab, device=dev, dtype=dname)
+        two = SynthesisEngine(cfg, model, vocab, devices=[dev, dev], dtype=dname)
+        wav1, n1 = one.run(*args, BENCH_FRAMES, 1.0)
+        half = BENCH_B // len(two.replicas)  # one replica on each replica's rows alone
+        parts = [one.run(*(a[i * half:(i + 1) * half] for a in args), BENCH_FRAMES, 1.0)
+                 for i in range(len(two.replicas))]
+        wav_h, n_h = np.concatenate([w for w, _ in parts]), np.concatenate([n for _, n in parts])
+        hooks, recorded = [], []
+        for replica in two.replicas:
+            s, h = watch_stage_shapes(replica)
+            recorded.append(s)
+            hooks += h
+        fused_residual_unit.launches = 0
+        fused_mrf_stage.launches = 0
+        try:
+            wav2, n2 = two.run(*args, BENCH_FRAMES, 1.0)
+            torch.cuda.synchronize()
+        finally:
+            for h in hooks:
+                h.remove()
+        launches = {"fused_residual_unit": fused_residual_unit.launches,
+                    "fused_mrf_stage": fused_mrf_stage.launches}
+        calls = len(two.replicas)
+        for k in launches_total:
+            launches_total[k] += launches[k]
+        per_call = launches_per_call(cfg.vocoder)
+        if tuple(launches.values()) != tuple(n * calls for n in per_call):
+            fail(f"[dp_serve] {dname}: launches {launches} != {per_call} per replica call x "
+                 f"{calls}")
+        for s in recorded:
+            shapes |= s
+        if not (np.array_equal(n1, n2) and np.array_equal(n_h, n2)):
+            fail(f"[dp_serve] {dname}: durations differ: {n2} vs {n1} (one call) and {n_h} "
+                 "(one replica on each half)")
+        scale = float(np.abs(wav1).max())
+        err = float(np.abs(wav2 - wav1).max())
+        err_h = float(np.abs(wav2 - wav_h).max())
+        err_batch = float(np.abs(wav_h - wav1).max())
+        tol = TOL_CPU if dname == "f32" else TOL_DP_BF16
+        if (not np.all(np.isfinite(wav2)) or scale < 1e-3 or err_h > TOL_CPU * scale
+                or err > tol * scale):
+            fail(f"[dp_serve] {dname}: two replicas vs one on the same rows: max err "
+                 f"{err_h:.3g}, vs one call on all {BENCH_B}: {err:.3g} (max {scale:.3g})")
+        times = {}
+        for name, eng in (("one", one), ("two", two), ("two_again", two), ("one_again", one)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng.run(*args, BENCH_FRAMES, 1.0)
+            torch.cuda.synchronize()
+            times[name] = (time.perf_counter() - t0) * 1e3
+        one_ms = min(times["one"], times["one_again"])
+        two_ms = min(times["two"], times["two_again"])
+        out[dname] = dict(err=err, err_same_rows=err_h, err_one_by_batch=err_batch, scale=scale,
+                          launches=launches, one_ms=one_ms, two_ms=two_ms, runs_ms=times,
+                          xrt_one=audio_s * 1e3 / one_ms, xrt_two=audio_s * 1e3 / two_ms)
+        log(f"[dp_serve] {dname}, bench bucket B={BENCH_B} ({half} rows per replica), {calls} "
+            f"replicas on {dev}: durations equal; max |2 replicas - 1 replica on the same "
+            f"{half}-row halves| {err_h:.2e} (tol {TOL_CPU} x max), - 1 replica on all "
+            f"{BENCH_B} rows {err:.2e} (tol {tol} x max; the one replica alone, {half} rows vs "
+            f"{BENCH_B}: {err_batch:.2e}), max |wav| {scale:.3f}; launches {launches} over "
+            f"{calls} replica calls; "
+            f"{one_ms:.1f} ms one replica (xRT {audio_s * 1e3 / one_ms:.1f}), {two_ms:.1f} ms "
+            f"two on one card (xRT {audio_s * 1e3 / two_ms:.1f}; one card, so no scaling figure)")
+    path = check_path_kernels(dev, model, shapes, "dp_serve")
+    report["dp_serve"] = out
+    return dict(launches=launches_total, path=path)
+
+
+# ---------------------------------------------------------------------------
+# 10. data-parallel training: two ranks on the one card over gloo
+# ---------------------------------------------------------------------------
+
+def _dp_setup(corpus: str, cache: str, dev):
+    """The full-width training config of the corpus, its training dataset
+    (features on `dev`, cached) and the fixed global batch: the first batch
+    of the seeded loader, on `dev`. The same in the parent and in each rank."""
+    from emotivoice_tpu_torch.data.dataset import BucketedLoader, PromptTTSDataset
+    from emotivoice_tpu_torch.frontend.tokens import TokenVocab, load_label_list
+    from emotivoice_tpu_torch.training.loop import to_device
+
+    vocab = TokenVocab.from_file(os.path.join(corpus, "tokenlist"))
+    speakers = load_label_list(os.path.join(corpus, "speakers"))
+    cfg = _train_cfg(len(vocab), len(speakers))
+    zeros = np.zeros(cfg.am.bert_embedding, np.float32)
+    ds = PromptTTSDataset(os.path.join(corpus, "datalist.jsonl"), cfg, vocab, speakers,
+                          lambda text: zeros, cache_dir=cache, device=dev)
+    batch = next(iter(BucketedLoader(ds, DP_GLOBAL_B, seed=SEED)))
+    return cfg, ds, to_device(batch, dev)
+
+
+def dp_one_step(cfg, batch, dev, dp) -> dict:
+    """One TrainStep from build_models' seeded parameters, dropout off, on
+    this rank's rows of `batch`: every loss, the gradient norms of
+    TRAIN_GRAD_PARAMS (the ranks' mean gradients) and the spectral-norm u, v."""
+    from emotivoice_tpu_torch.training.loop import build_models
+    from emotivoice_tpu_torch.training.step import TrainStep
+
+    model, disc = build_models(cfg, dev)
+    model.eval()
+    disc.eval()
+    trainer = TrainStep(cfg, model, disc, dp=dp)
+    metrics = trainer(dp.shard_batch(batch))
+    named = {**dict(model.named_parameters()), **dict(disc.named_parameters())}
+    uv = torch.cat([b.flatten() for k, b in disc.named_buffers()
+                    if k.endswith(("weight_u", "weight_v"))])
+    return dict(metrics={k: float(v) for k, v in metrics.items()},
+                grads={k: float(named[k].grad.norm()) for k in TRAIN_GRAD_PARAMS},
+                uv=uv.cpu().numpy().tolist())
+
+
+def _dp_env(rank: int, port: int) -> dict:
+    env = dict(os.environ)
+    path = [ROOT] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep) if p]
+    env.update(RANK=str(rank), LOCAL_RANK=str(rank), WORLD_SIZE=str(DP_RANKS),
+               MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), PYTHONPATH=os.pathsep.join(path))
+    return env
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _worker_cmd() -> list:
+    """How a rank starts: this script in worker mode."""
+    return [sys.executable, os.path.abspath(__file__)]
+
+
+def _spawn_ranks(worker_args, tmp: str, tag: str, timeout: float = 600.0):
+    """DP_RANKS processes of this script in worker mode, with the torchrun
+    environment; waits for all, kills any left on the way out; fails on a
+    non-zero exit. Returns each rank's output."""
+    port = _free_port()
+    procs = []
+    try:
+        for r in range(DP_RANKS):
+            log_path = os.path.join(tmp, f"{tag}_rank{r}.log")
+            procs.append((subprocess.Popen(
+                _worker_cmd() + ["--dp-worker", *worker_args(r)],
+                env=_dp_env(r, port), cwd=ROOT, stdout=open(log_path, "w"),
+                stderr=subprocess.STDOUT), log_path))
+        deadline = time.time() + timeout
+        for p, _ in procs:
+            p.wait(timeout=max(deadline - time.time(), 1))
+    finally:
+        for p, _ in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=60)
+    texts = [open(path).read() for _, path in procs]
+    for r, ((p, _), text) in enumerate(zip(procs, texts)):
+        if p.returncode != 0:
+            fail(f"[dp_train] {tag} rank {r} exited {p.returncode}: {text[-3000:]}")
+    return texts
+
+
+def dp_worker(argv) -> None:
+    """One rank of `[dp_train]` (this script run with --dp-worker): `step`
+    runs dp_one_step on the fixed batch; `cli` runs the training CLI's own
+    main() and records its kernel launches, the time of its gradient
+    all-reduces and its peak memory. Writes JSON to --dp-out."""
+    import emotivoice_tpu_torch.parallel.data_parallel as dpm
+    from emotivoice_tpu_torch.ops.cuda.mrf_stage import fused_mrf_stage
+    from emotivoice_tpu_torch.ops.cuda.resblock import fused_residual_unit
+    from emotivoice_tpu_torch.parallel.multihost import initialize_multihost
+
+    p = argparse.ArgumentParser(allow_abbrev=False)
+    p.add_argument("--dp-worker", choices=["step", "cli"], required=True)
+    p.add_argument("--dp-out", required=True)
+    p.add_argument("--dp-dir", default=None)
+    p.add_argument("--dp-device", default="cuda:0")
+    args, rest = p.parse_known_args(argv)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(args.dp_device)
+    on_card = dev.type == "cuda"
+    if on_card:
+        torch.cuda.set_device(dev)
+    out = {}
+    if args.dp_worker == "step":
+        rank, world = initialize_multihost(dev, "gloo")
+        try:
+            cfg, _, batch = _dp_setup(os.path.join(args.dp_dir, "corpus"),
+                                      os.path.join(args.dp_dir, "cache"), dev)
+            out = dp_one_step(cfg, batch, dev, dpm.DataParallel(rank, world, dev))
+        finally:
+            torch.distributed.destroy_process_group()
+    else:
+        from emotivoice_tpu_torch import train as train_cli
+
+        reduce_ms = []
+        mean_grads = dpm.DataParallel.mean_grads
+
+        def sync():
+            if on_card:
+                torch.cuda.synchronize(dev)
+
+        def timed_mean_grads(self, params):
+            sync()
+            t0 = time.perf_counter()
+            mean_grads(self, params)
+            sync()
+            reduce_ms.append((time.perf_counter() - t0) * 1e3)
+
+        dpm.DataParallel.mean_grads = timed_mean_grads
+        fused_residual_unit.launches = 0
+        fused_mrf_stage.launches = 0
+        if on_card:
+            torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        train_cli.main(rest)
+        sync()
+        out = dict(wall_s=time.perf_counter() - t0, reduce_ms=reduce_ms,
+                   peak_bytes=torch.cuda.max_memory_allocated(dev) if on_card else 0,
+                   launches={"fused_residual_unit": fused_residual_unit.launches,
+                             "fused_mrf_stage": fused_mrf_stage.launches})
+    with open(args.dp_out, "w") as f:
+        json.dump(out, f)
+
+
+def phase_dp_train(dev) -> dict:
+    """Two ranks (processes with the torchrun environment, gloo, both on
+    cuda:0) against one process: one step on one global batch of 16 rows,
+    then DP_CLI_STEPS steps of the training CLI with --multihost."""
+    from emotivoice_tpu_torch.data.synthetic_corpus import main as make_corpus
+    from emotivoice_tpu_torch.parallel.data_parallel import DataParallel
+
+    if dev.type == "cuda":
+        dev = torch.device("cuda", dev.index or 0)  # the ranks name their card
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dp_")
+    try:
+        corpus, cache = os.path.join(tmp, "corpus"), os.path.join(tmp, "cache")
+        make_corpus(["--out", corpus, "--n-train", "64", "--n-valid", "8", "--n-speakers", "4",
+                     "--seed", str(SEED)])
+        cfg, ds, batch = _dp_setup(corpus, cache, dev)
+        for i in range(len(ds)):  # every feature on the card into the cache, for the ranks
+            ds[i]
+        t0 = time.perf_counter()
+        one = dp_one_step(cfg, batch, dev, DataParallel(device=dev))
+        one_s = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        _spawn_ranks(lambda r: ["step", "--dp-dir", tmp, "--dp-device", str(dev), "--dp-out",
+                                os.path.join(tmp, f"step{r}.json")], tmp, "step")
+        ranks_s = time.perf_counter() - t0
+        ranks = [json.load(open(os.path.join(tmp, f"step{r}.json"))) for r in range(DP_RANKS)]
+        loss_err = {k: max(abs(r["metrics"][k] - v) for r in ranks) / max(abs(v), 1e-12)
+                    for k, v in one["metrics"].items()}
+        grad_err = {k: max(abs(r["grads"][k] - v) for r in ranks) / max(abs(v), 1e-12)
+                    for k, v in one["grads"].items()}
+        worst_loss = max(loss_err.items(), key=lambda kv: kv[1])
+        worst_grad = max(grad_err.items(), key=lambda kv: kv[1])
+        uv_equal = all(r["uv"] == ranks[0]["uv"] for r in ranks)
+        uv_err = float(np.abs(np.array(ranks[0]["uv"]) - np.array(one["uv"])).max())
+        log(f"[dp_train] one step, global batch {DP_GLOBAL_B} x {int(batch['tokens'].shape[1])} "
+            f"tokens x {int(batch['mel'].shape[1])} frames, dropout off: {DP_RANKS} ranks (gloo, "
+            f"{DP_GLOBAL_B // DP_RANKS} rows each, both on {dev}) vs one process: worst loss "
+            f"rel err {worst_loss[1]:.2e} ({worst_loss[0]}; tol {TOL_TRAIN_LOSS}), worst "
+            f"grad-norm rel err {worst_grad[1]:.2e} ({worst_grad[0]}; tol {TOL_TRAIN_GRAD}) over "
+            f"{len(TRAIN_GRAD_PARAMS)} parameters; spectral u, v equal on the ranks: {uv_equal}, "
+            f"vs one process max {uv_err:.2e}; {one_s:.1f} s one process, {ranks_s:.1f} s the "
+            f"ranks (start-up included)")
+        if not (worst_loss[1] <= TOL_TRAIN_LOSS and worst_grad[1] <= TOL_TRAIN_GRAD and uv_equal):
+            fail(f"[dp_train] ranks and one process disagree: {loss_err} {grad_err}")
+
+        out = os.path.join(tmp, "out")
+        cli_args = ["--datalist", os.path.join(corpus, "datalist.jsonl"),
+                    "--tokenlist", os.path.join(corpus, "tokenlist"),
+                    "--speakers", os.path.join(corpus, "speakers"), "--output-dir", out,
+                    "--cache-dir", cache, "--multihost", "--backend", "gloo",
+                    "--device", str(dev), "--batch-size", str(DP_GLOBAL_B),
+                    "--total-steps", str(DP_CLI_STEPS), "--log-every", "1",
+                    "--iters-per-checkpoint", str(DP_CLI_STEPS)]
+        t0 = time.perf_counter()
+        texts = _spawn_ranks(lambda r: ["cli", "--dp-device", str(dev), "--dp-out",
+                                        os.path.join(tmp, f"cli{r}.json")] + cli_args, tmp, "cli")
+        cli_s = time.perf_counter() - t0
+        cli = [json.load(open(os.path.join(tmp, f"cli{r}.json"))) for r in range(DP_RANKS)]
+        rows = [r for r in _parse_log(os.path.join(out, "log", "train_log.txt")) if "g_loss" in r]
+        ckpts = sorted(os.listdir(os.path.join(out, "ckpt")))
+        for r, text in enumerate(texts):
+            if f"multihost: rank {r} of {DP_RANKS} on {dev}" not in text:
+                fail(f"[dp_train] rank {r} did not report its place: {text[-2000:]}")
+        if [int(r["step"]) for r in rows] != list(range(1, DP_CLI_STEPS + 1)):
+            fail(f"[dp_train] rank 0's log holds steps {[r['step'] for r in rows]}")
+        if ckpts != [f"do_{DP_CLI_STEPS:08d}", f"g_{DP_CLI_STEPS:08d}"]:
+            fail(f"[dp_train] checkpoints {ckpts}")
+        for r in rows:
+            if not all(np.isfinite(v) for v in r.values()):
+                fail(f"[dp_train] non-finite loss at step {r['step']}: {r}")
+        launches = {k: sum(c["launches"][k] for c in cli) for k in cli[0]["launches"]}
+        if any(launches.values()):
+            fail(f"[dp_train] the train steps launched kernels: {launches}")
+        # two all-reduces (D, then G) per step; the first step's include start-up
+        per_step = [sum(c["reduce_ms"][2 * i:2 * i + 2]) for c in cli
+                    for i in range(1, DP_CLI_STEPS)]
+        reduce_ms = float(np.median(per_step))
+        sps = float(np.median([r["steps_per_sec"] for r in rows[1:]]))
+        peaks = [c["peak_bytes"] for c in cli]
+        log(f"[dp_train] `python -m emotivoice_tpu_torch.train --multihost --backend gloo "
+            f"--device {dev}` on {DP_RANKS} ranks, global batch {DP_GLOBAL_B}: {DP_CLI_STEPS} "
+            f"steps in {cli_s:.1f} s (start-up included), rank 0's log {sps:.2f} steps/s "
+            f"(median of steps 2-{DP_CLI_STEPS}); gradient all-reduce {reduce_ms:.1f} ms per step "
+            f"(D + G, one flat buffer each; gloo stages the card's tensors through the host); "
+            f"peak memory per rank " + ", ".join(f"{b / 2**30:.2f} GiB" for b in peaks)
+            + f"; mel_loss {rows[0]['mel_loss']:.4f} -> {rows[-1]['mel_loss']:.4f}; kernel "
+            f"launches in the steps {launches}; checkpoints {ckpts}; two ranks on one card: no "
+            f"multi-GPU figure")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    report["dp_train"] = dict(
+        step=dict(one=one, ranks=ranks, loss_rel_err=loss_err, grad_rel_err=grad_err,
+                  uv_equal=uv_equal, uv_err=uv_err, one_s=one_s, ranks_s=ranks_s),
+        cli=dict(steps=DP_CLI_STEPS, wall_s=cli_s, log=rows, ranks=cli, reduce_ms=reduce_ms,
+                 steps_per_s=sps, peak_bytes=peaks, launches=launches))
+    return dict(launches_steps=launches)
+
+
+# ---------------------------------------------------------------------------
+# 11. style-encoder pretraining
+# ---------------------------------------------------------------------------
+
+PRETRAIN_B, PRETRAIN_CPU_B, PRETRAIN_STEPS = 16, 4, 5
+
+
+def _pretrain_batch(cfg, tok, n: int, seed: int) -> dict:
+    """n stand-in-tokenized prompts (max_len 64) with seeded attribute labels."""
+    from emotivoice_tpu_torch.training.style_pretrain import ATTRIBUTES
+
+    rng = np.random.RandomState(seed)
+    texts = [STYLE_TEXTS[i % len(STYLE_TEXTS)] + " again" * (i // len(STYLE_TEXTS))
+             for i in range(n)]
+    enc = tok(texts, padding="max_length", truncation=True, max_length=64, return_tensors="np")
+    batch = {k: torch.as_tensor(v) for k, v in enc.items()}
+    for a in ATTRIBUTES:
+        batch[a] = torch.as_tensor(rng.randint(0, getattr(cfg, f"{a}_n_labels"), n))
+    return batch
+
+
+def phase_style_pretrain(dev) -> dict:
+    """The full-width StyleBertConfig encoder (random parameters from a seed,
+    the stand-in tokenizer): one PretrainStep on the card and on the CPU
+    from the same weights (dropout off, PRETRAIN_CPU_B prompts): the losses
+    and the gradient norms of three parameters; then PRETRAIN_STEPS steps of
+    `pretrain` at batch PRETRAIN_B with dropout on: device ms per step."""
+    from emotivoice_tpu_torch.config import StyleBertConfig
+    from emotivoice_tpu_torch.models.bert import StyleEncoder
+    from emotivoice_tpu_torch.models.jets import init_random_
+    from emotivoice_tpu_torch.training.style_pretrain import PretrainStep, pretrain
+
+    cfg = StyleBertConfig()
+    tok = StandInTokenizer(cfg.vocab_size)
+    state = init_random_(StyleEncoder(cfg), SEED + 4).state_dict()
+    names = ("bert.encoder.layer.0.attention.self.query.weight", "bert.pooler.dense.weight",
+             "emotion_clf.classifier.weight")
+    got = {}
+    batch = _pretrain_batch(cfg, tok, PRETRAIN_CPU_B, SEED)
+    for where, device in (("card", dev), ("cpu", torch.device("cpu"))):
+        model = StyleEncoder(cfg)
+        model.load_state_dict(state)
+        for m in model.modules():
+            if isinstance(m, torch.nn.Dropout):
+                m.p = 0.0
+        step = PretrainStep(model.to(device))
+        t0 = time.perf_counter()
+        metrics = step({k: v.to(device) for k, v in batch.items()})
+        named = dict(model.named_parameters())
+        got[where] = dict(metrics={k: float(v) for k, v in metrics.items()},
+                          grads={k: float(named[k].grad.norm()) for k in names},
+                          seconds=time.perf_counter() - t0)
+    card, cpu = got["card"], got["cpu"]
+    errs = {k: abs(card["metrics"][k] - v) / max(abs(v), 1e-12)
+            for k, v in cpu["metrics"].items() if k.endswith("loss")}
+    errs.update({k: abs(card["grads"][k] - v) / max(abs(v), 1e-12)
+                 for k, v in cpu["grads"].items()})
+    worst = max(errs.items(), key=lambda kv: kv[1])
+    log(f"[style_pretrain] StyleEncoder {cfg.num_layers} layers, {cfg.hidden_size}-d, one "
+        f"PretrainStep on {PRETRAIN_CPU_B} prompts, dropout off, card vs CPU: loss "
+        f"{card['metrics']['loss']:.5f} vs {cpu['metrics']['loss']:.5f}; worst rel err over the "
+        f"5 losses and {len(names)} gradient norms {worst[1]:.2e} ({worst[0]}; tol "
+        f"{TOL_PRETRAIN}, f32 with TF32 off); {cpu['seconds']:.1f} s on the CPU")
+    if worst[1] > TOL_PRETRAIN or not np.isfinite(card["metrics"]["loss"]):
+        fail(f"[style_pretrain] card and CPU disagree: {errs}")
+
+    model = StyleEncoder(cfg)
+    model.load_state_dict(state)
+    batches = [_pretrain_batch(cfg, tok, PRETRAIN_B, SEED + 1 + i)
+               for i in range(PRETRAIN_STEPS)]
+
+    class Lines:
+        rows = []
+
+        def log(self, step, metrics, prefix):
+            self.rows.append(dict(step=step, prefix=prefix, **metrics))
+
+    lines = Lines()
+    torch.backends.cudnn.allow_tf32 = True  # pretrain() must turn it off itself
+    t0 = time.perf_counter()
+    pretrain(model, batches, total_steps=PRETRAIN_STEPS, log_every=1, logger=lines, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if torch.backends.cudnn.allow_tf32 or torch.backends.cuda.matmul.allow_tf32:
+        fail("[style_pretrain] pretrain() left TF32 on")
+    if [r["step"] for r in lines.rows] != list(range(1, PRETRAIN_STEPS + 1)) or not all(
+            np.isfinite(r["loss"]) for r in lines.rows):
+        fail(f"[style_pretrain] pretrain logged {lines.rows}")
+    step = PretrainStep(model)
+    dev_batch = {k: v.to(dev) for k, v in batches[0].items()}
+    ms = timed(lambda: step(dev_batch), iters=PRETRAIN_STEPS, warmup=1)
+    log(f"[style_pretrain] pretrain(): {PRETRAIN_STEPS} steps at batch {PRETRAIN_B} x 64 tokens, "
+        f"dropout on, AdamW(2e-5, wd 1e-4): {wall:.2f} s (first step included); loss "
+        + " -> ".join(f"{r['loss']:.4f}" for r in lines.rows)
+        + f"; {ms:.1f} ms per PretrainStep (CUDA events, {PRETRAIN_STEPS} steps)")
+    report["style_pretrain"] = dict(card_vs_cpu=got, rel_err=errs, pretrain_wall_s=wall,
+                                    log=lines.rows, step_ms=ms)
+    return dict(step_ms=ms)
 
 
 def found_encoder() -> bool:
@@ -1437,7 +2104,10 @@ def main() -> None:
     p = argparse.ArgumentParser()
     p.add_argument("--report", default=None, help="write the detailed numbers here (JSON)")
     p.add_argument("--profile", action="store_true",
-                   help="also measure the card's busy time with torch.profiler ([style], [serve])")
+                   help="also measure the card's busy time with torch.profiler ([style], "
+                        "[serve], the [train] step in each dtype)")
+    if "--dp-worker" in sys.argv:  # one rank of [dp_train], started by phase_dp_train
+        return dp_worker(sys.argv[1:])
     args = p.parse_args()
     card = phase_device()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1450,9 +2120,15 @@ def main() -> None:
     cpu_model = phase_cpu(dev, cfg, model)
     embedder = phase_style(dev, args.profile)
     serve_out = phase_serve(dev, cfg, vocab, model, embedder, cpu_model, args.profile)
-    train_out = phase_train(dev)
+    dp_serve_out = phase_dp_serve(dev, cfg, vocab, model)
+    train_out = phase_train(dev, args.profile)
+    curves_out = phase_train_curves(dev)
+    dp_train_out = phase_dp_train(dev)
+    phase_style_pretrain(dev)
 
     kernels = []
+    paths = [main_out["path"], serve_out["path"], train_out["path"], dp_serve_out["path"],
+             curves_out["paths"]["f32"], curves_out["paths"]["bf16"]]
     src = {"fused_residual_unit": ("emotivoice_tpu_torch/csrc/resblock.cu",
                                    "emotivoice_tpu/ops/pallas/resblock.py:124"),
            "fused_mrf_stage": ("emotivoice_tpu_torch/csrc/mrf_stage.cu",
@@ -1466,11 +2142,12 @@ def main() -> None:
             launches_serve=serve_out["launches"][name],
             launches_train_steps=train_out["launches_steps"][name],
             launches_train_validation=train_out["launches"][name],
-            max_abs_err=max(kern["worst"][name], main_out["path"]["worst"][name],
-                            serve_out["path"]["worst"][name], train_out["path"]["worst"][name]),
-            path_shapes_checked=(main_out["path"]["shapes"][name]
-                                 + serve_out["path"]["shapes"][name]
-                                 + train_out["path"]["shapes"][name]),
+            launches_dp_serve=dp_serve_out["launches"][name],
+            launches_dp_train_steps=dp_train_out["launches_steps"][name],
+            launches_train_curve_validation_f32=curves_out["launches"]["f32"][name],
+            launches_train_curve_validation_bf16=curves_out["launches"]["bf16"][name],
+            max_abs_err=max(kern["worst"][name], *(p["worst"][name] for p in paths)),
+            path_shapes_checked=sum(p["shapes"][name] for p in paths),
             ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
             bound_by="operations" if t["flop"] / PEAK_BF16 >= t["bytes"] / PEAK_BYTES else "bytes",
             library_ms=t["library_ms"], bound_share=t["bound_ms"] / t["ms"],
@@ -1486,7 +2163,11 @@ def main() -> None:
             # f32 on both driven paths: worst |kernel - plain| / max |plain|
             max_rel_err_f32=max(t32["err"], main_out["path"]["worst_rel"][name],
                                 serve_out["path"]["worst_rel"][name],
-                                train_out["path"]["worst_rel"][name]),
+                                train_out["path"]["worst_rel"][name],
+                                curves_out["paths"]["f32"]["worst_rel"][name]),
+            # both dtypes (two replicas), bf16 (validation of the bf16 run)
+            max_rel_err_dp_serve=dp_serve_out["path"]["worst_rel"][name],
+            max_rel_err_train_bf16=curves_out["paths"]["bf16"]["worst_rel"][name],
         ))
     report["kernels"] = kernels
     if args.report:

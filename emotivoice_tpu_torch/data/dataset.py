@@ -320,22 +320,36 @@ class PrefetchLoader:
 
         q: "queue.Queue" = queue.Queue(maxsize=self.depth)
         DONE, ERR = object(), object()
+        stop = threading.Event()  # the consumer left early (end of a data-parallel epoch)
+
+        def put(item) -> bool:
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.1)
+                    return True
+                except queue.Full:
+                    pass
+            return False
 
         def worker():
             try:
                 for batch in self.loader:
-                    q.put(batch)
+                    if not put(batch):
+                        return
             except BaseException as e:  # propagate to the consumer
-                q.put((ERR, e))
+                put((ERR, e))
                 return
-            q.put(DONE)
+            put(DONE)
 
         t = threading.Thread(target=worker, daemon=True)
         t.start()
-        while True:
-            item = q.get()
-            if item is DONE:
-                return
-            if isinstance(item, tuple) and len(item) == 2 and item[0] is ERR:
-                raise item[1]
-            yield item
+        try:
+            while True:
+                item = q.get()
+                if item is DONE:
+                    return
+                if isinstance(item, tuple) and len(item) == 2 and item[0] is ERR:
+                    raise item[1]
+                yield item
+        finally:
+            stop.set()

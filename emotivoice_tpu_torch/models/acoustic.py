@@ -122,7 +122,9 @@ class PromptTTS(nn.Module):
         if training:
             t_feats = mel_targets.shape[1]
             feat_valid = sequence_mask(feats_lengths, t_feats)
-            log_p_attn = self.alignment_module(x, mel_targets.to(dtype), text_valid)
+            # f32 in any compute dtype: the JAX module has no dtype, so its
+            # bf16 text input meets f32 weights and f32 mel targets in f32
+            log_p_attn = self.alignment_module(x.float(), mel_targets.float(), text_valid)
             log_p_attn = log_p_attn + beta_binomial_prior(
                 text_lengths, feats_lengths, t_text, t_feats)
             ds, bin_loss, path = viterbi_decode(log_p_attn, text_lengths, feats_lengths)

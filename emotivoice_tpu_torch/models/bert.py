@@ -11,8 +11,10 @@ Parameter names are HF BERT's (`bert.embeddings.word_embeddings.weight`,
 `{pitch,speed,energy,emotion}_clf.classifier`), so a reference
 `checkpoint_163431` state dict loads as it is and this module's own
 `state_dict()` converts through `convert_style_encoder` of the JAX package
-unchanged. Inference only: the dropouts of the pretraining slice are not
-built, and modules run in `eval()`.
+unchanged. BERT's five dropouts (embeddings, attention probabilities,
+attention output, feed-forward output, each classification head at 0.1)
+are active in `train()` only, for style-encoder pretraining
+(`training/style_pretrain.py`); in `eval()` they are the identity.
 """
 
 from __future__ import annotations
@@ -42,6 +44,7 @@ class BertSelfAttention(nn.Module):
         self.query = nn.Linear(cfg.hidden_size, cfg.hidden_size)
         self.key = nn.Linear(cfg.hidden_size, cfg.hidden_size)
         self.value = nn.Linear(cfg.hidden_size, cfg.hidden_size)
+        self.dropout = nn.Dropout(cfg.attention_dropout)
 
     def forward(self, x: torch.Tensor, key_mask: Optional[torch.Tensor]) -> torch.Tensor:
         b, t, d = x.shape
@@ -53,28 +56,29 @@ class BertSelfAttention(nn.Module):
         scores = torch.matmul(q, k.transpose(-1, -2)).float() / math.sqrt(self.d_head)
         if key_mask is not None:
             scores = scores.masked_fill(~key_mask[:, None, None, :], NEG_INF)
-        probs = torch.softmax(scores, dim=-1)
+        probs = self.dropout(torch.softmax(scores, dim=-1))
         out = torch.matmul(probs.to(v.dtype), v)
         return out.transpose(1, 2).reshape(b, t, d)
 
 
 class _SelfOutput(nn.Module):
-    """dense + residual LayerNorm (HF `BertSelfOutput` / `BertOutput`)."""
+    """dense, dropout, residual LayerNorm (HF `BertSelfOutput` / `BertOutput`)."""
 
-    def __init__(self, d_in: int, d_out: int):
+    def __init__(self, d_in: int, d_out: int, p_dropout: float):
         super().__init__()
         self.dense = nn.Linear(d_in, d_out)
+        self.dropout = nn.Dropout(p_dropout)
         self.LayerNorm = nn.LayerNorm(d_out, eps=LN_EPS)
 
     def forward(self, h: torch.Tensor, residual: torch.Tensor) -> torch.Tensor:
-        return self.LayerNorm(residual + self.dense(h))
+        return self.LayerNorm(residual + self.dropout(self.dense(h)))
 
 
 class _Attention(nn.Module):
     def __init__(self, cfg: StyleBertConfig):
         super().__init__()
         self.self = BertSelfAttention(cfg)
-        self.output = _SelfOutput(cfg.hidden_size, cfg.hidden_size)
+        self.output = _SelfOutput(cfg.hidden_size, cfg.hidden_size, cfg.hidden_dropout)
 
     def forward(self, x, key_mask):
         return self.output(self.self(x, key_mask), x)
@@ -94,7 +98,7 @@ class BertLayer(nn.Module):
         super().__init__()
         self.attention = _Attention(cfg)
         self.intermediate = _Intermediate(cfg)
-        self.output = _SelfOutput(cfg.intermediate_size, cfg.hidden_size)
+        self.output = _SelfOutput(cfg.intermediate_size, cfg.hidden_size, cfg.hidden_dropout)
 
     def forward(self, x: torch.Tensor, key_mask: Optional[torch.Tensor]) -> torch.Tensor:
         x = self.attention(x, key_mask)
@@ -108,12 +112,13 @@ class _Embeddings(nn.Module):
         self.position_embeddings = nn.Embedding(cfg.max_position_embeddings, cfg.hidden_size)
         self.token_type_embeddings = nn.Embedding(cfg.type_vocab_size, cfg.hidden_size)
         self.LayerNorm = nn.LayerNorm(cfg.hidden_size, eps=LN_EPS)
+        self.dropout = nn.Dropout(cfg.hidden_dropout)
 
     def forward(self, input_ids, token_type_ids):
         pos_ids = torch.arange(input_ids.shape[1], device=input_ids.device)[None, :]
         x = (self.word_embeddings(input_ids) + self.position_embeddings(pos_ids)
              + self.token_type_embeddings(token_type_ids))
-        return self.LayerNorm(x)
+        return self.dropout(self.LayerNorm(x))
 
 
 class _Encoder(nn.Module):
@@ -154,12 +159,15 @@ class BertModel(nn.Module):
 
 
 class _Head(nn.Module):
+    """Dropout 0.1 on the pooled output (each head its own), then a Linear."""
+
     def __init__(self, d_in: int, n_labels: int):
         super().__init__()
+        self.dropout = nn.Dropout(0.1)
         self.classifier = nn.Linear(d_in, n_labels)
 
     def forward(self, x):
-        return self.classifier(x)
+        return self.classifier(self.dropout(x))
 
 
 class StyleEncoder(nn.Module):

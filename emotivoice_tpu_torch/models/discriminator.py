@@ -41,7 +41,8 @@ class WNConv2d(WeightNorm):
         self.stride, self.padding = stride, padding
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.conv2d(x, self.folded(), self.bias, self.stride, self.padding)
+        return F.conv2d(x, self.folded().to(x.dtype), self.bias.to(x.dtype), self.stride,
+                        self.padding)
 
 
 class WNConvNCW(WeightNorm):
@@ -53,8 +54,8 @@ class WNConvNCW(WeightNorm):
         self.stride, self.groups, self.padding = stride, groups, padding
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.conv1d(x, self.folded(), self.bias, self.stride, self.padding,
-                        groups=self.groups)
+        return F.conv1d(x, self.folded().to(x.dtype), self.bias.to(x.dtype), self.stride,
+                        self.padding, groups=self.groups)
 
 
 def _unit(rs: np.random.RandomState, n: int) -> torch.Tensor:
@@ -86,8 +87,8 @@ class SNConv1d(nn.Module):
         # copies: a later update_stats call rewrites the buffers in place
         # while this call's graph may still need them
         sigma = torch.dot(self.weight_u.clone(), torch.mv(w_mat, self.weight_v.clone()))
-        return F.conv1d(x, self.weight_orig / sigma, self.bias, self.stride, self.padding,
-                        groups=self.groups)
+        return F.conv1d(x, (self.weight_orig / sigma).to(x.dtype), self.bias.to(x.dtype),
+                        self.stride, self.padding, groups=self.groups)
 
 
 def _lrelu(x: torch.Tensor) -> torch.Tensor:
@@ -178,11 +179,18 @@ def avg_pool1d(x: torch.Tensor) -> torch.Tensor:
 
 class Discriminator(nn.Module):
     """MPD + MSD (reference pretrained_discriminator.py:21-40); topology from
-    `DiscriminatorConfig` (defaults: the reference's 5 periods, 3 scales)."""
+    `DiscriminatorConfig` (defaults: the reference's 5 periods, 3 scales).
 
-    def __init__(self, cfg: DiscriminatorConfig = DiscriminatorConfig()):
+    `dtype` is the compute dtype: the waveforms are cast to it on entry and
+    every conv follows the activations' dtype; the parameters (and the
+    spectral norm's power iteration) stay f32, and the GAN losses below
+    accumulate in f32."""
+
+    def __init__(self, cfg: DiscriminatorConfig = DiscriminatorConfig(),
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.cfg = cfg
+        self.dtype = dtype
         self.mpd = MultiPeriodDiscriminator(cfg)
         self.msd = MultiScaleDiscriminator(cfg)
 
@@ -191,6 +199,7 @@ class Discriminator(nn.Module):
         real_fmaps, fake_fmaps) over all sub-discriminators, periods first.
         Each sub-discriminator sees y, then y_hat (two power iterations of
         the spectral norm per call with `update_stats`)."""
+        y, y_hat = y.to(self.dtype), y_hat.to(self.dtype)
         real_outs: List[torch.Tensor] = []
         fake_outs: List[torch.Tensor] = []
         real_fmaps: List[List[torch.Tensor]] = []

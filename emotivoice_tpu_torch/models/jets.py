@@ -55,13 +55,12 @@ class JETSGenerator(nn.Module):
         pitch_targets: Optional[torch.Tensor] = None,
         energy_targets: Optional[torch.Tensor] = None,
         cut: bool = True,
-        segment_generator: Optional[torch.Generator] = None,
         start_idxs: Optional[torch.Tensor] = None,
     ) -> Dict[str, Any]:
         """`dtype` is the compute dtype (float32 or bfloat16); parameters
         stay f32 and the waveform leaves f32. In training with `cut`, the
-        crop's start frames are drawn from `segment_generator`, or taken
-        from `start_idxs` when given (to replay another run's draw)."""
+        crop starts at `start_idxs` (the trainer draws them), or at frames
+        drawn from torch's global generator when none are given."""
         out = self.am(
             tokens, text_lengths, speaker, style_embedding, content_embedding,
             max_frames=max_frames, alpha=alpha, mel_targets=mel_targets,
@@ -72,8 +71,7 @@ class JETSGenerator(nn.Module):
         out["z_start_idxs"] = None
         if mel_targets is not None and cut:
             z, out["z_start_idxs"] = get_random_segments(
-                z, out["output_lengths"], self.cfg.train.segment_size, segment_generator,
-                start_idxs)
+                z, out["output_lengths"], self.cfg.train.segment_size, start_idxs=start_idxs)
         out["wav_predictions"] = self.generator(z, dtype=dtype)
         return out
 

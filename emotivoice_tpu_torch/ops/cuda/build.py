@@ -30,6 +30,7 @@ NVCC_FLAGS = [
 ]
 
 _lock = threading.Lock()
+_count_lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 build_log = ""  # nvcc's output of the last build in this process (ptxas -v)
 build_seconds = 0.0  # wall time of that build (0 when the library was reused)
@@ -127,6 +128,13 @@ def load() -> ctypes.CDLL:
             _declare(lib)
             _lib = lib
         return _lib
+
+
+def count_launch(wrapper) -> None:
+    """Add one to a kernel wrapper's `launches` counter. The lock keeps the
+    count exact when several threads (engine replicas) launch at once."""
+    with _count_lock:
+        wrapper.launches += 1
 
 
 def check(err: int, name: str) -> None:

@@ -125,20 +125,21 @@ def fused_mrf_stage(x, weights: StageWeights, kernel_sizes: Sequence[int],
     check_operands("fused_mrf_stage", x, tensors, shapes)
     tile = stage_tile(c, stage_halo(kernel_sizes, dilation_sizes), t, x.dtype)
     lib = build.load()
-    y = torch.empty_like(x)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
     i32 = ctypes.c_int
-    err = lib.evt_mrf_stage(
-        x.data_ptr(), y.data_ptr(),
-        (ctypes.c_void_p * len(ptrs))(*ptrs),
-        (i32 * n_chains)(*[int(k) for k in kernel_sizes]),
-        (i32 * n_chains)(*n_units),
-        (i32 * len(dils))(*dils),
-        n_chains, bsz, t, c, tile, ring_rows(c, x.dtype), int(x.dtype == torch.bfloat16),
-        ctypes.c_void_p(stream),
-    )
-    build.check(err, "fused_mrf_stage")
-    fused_mrf_stage.launches += 1
+    with torch.cuda.device(x.device):  # as in fused_residual_unit
+        y = torch.empty_like(x)
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.evt_mrf_stage(
+            x.data_ptr(), y.data_ptr(),
+            (ctypes.c_void_p * len(ptrs))(*ptrs),
+            (i32 * n_chains)(*[int(k) for k in kernel_sizes]),
+            (i32 * n_chains)(*n_units),
+            (i32 * len(dils))(*dils),
+            n_chains, bsz, t, c, tile, ring_rows(c, x.dtype), int(x.dtype == torch.bfloat16),
+            ctypes.c_void_p(stream),
+        )
+        build.check(err, "fused_mrf_stage")
+    build.count_launch(fused_mrf_stage)
     return y
 
 

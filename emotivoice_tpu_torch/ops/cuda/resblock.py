@@ -224,15 +224,18 @@ def fused_residual_unit(x, w1, b1, w2, b2, k: int, d: int) -> torch.Tensor:
                    ((k, c, c), (c,), (k, c, c), (c,)))
     tile = unit_tile(c, k, d, t, x.dtype, bsz, sm_count(x.device))
     lib = build.load()
-    y = torch.empty_like(x)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = lib.evt_residual_unit(
-        x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-        y.data_ptr(), bsz, t, c, k, d, tile, ring_rows(c, x.dtype),
-        int(x.dtype == torch.bfloat16), ctypes.c_void_p(stream),
-    )
-    build.check(err, "fused_residual_unit")
-    fused_residual_unit.launches += 1
+    # the entry point sets the kernel's attributes and launches on the
+    # current device: make it x's (an engine replica may not be on it)
+    with torch.cuda.device(x.device):
+        y = torch.empty_like(x)
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.evt_residual_unit(
+            x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
+            y.data_ptr(), bsz, t, c, k, d, tile, ring_rows(c, x.dtype),
+            int(x.dtype == torch.bfloat16), ctypes.c_void_p(stream),
+        )
+        build.check(err, "fused_residual_unit")
+    build.count_launch(fused_residual_unit)
     return y
 
 

@@ -29,11 +29,17 @@ def get_segments(x: torch.Tensor, start_idxs: torch.Tensor, segment_size: int) -
 
 
 def random_starts(lengths: torch.Tensor, segment_size: int,
-                  generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                  generator: Optional[torch.Generator] = None,
+                  rows: Optional[slice] = None, n_draw: Optional[int] = None) -> torch.Tensor:
     """int32 start indices floor(u * max(lengths - segment_size, 0)), u ~
-    U[0, 1) from `generator` (on lengths' device)."""
+    U[0, 1) from `generator` (on lengths' device). With `rows`, `n_draw`
+    uniforms are drawn (a global batch's) and `lengths` are those of its
+    `rows`: a data-parallel rank cuts what one process cuts from the
+    concatenated batch."""
     max_start = torch.clamp(lengths - segment_size, min=0).float()
-    u = torch.rand(lengths.shape[0], generator=generator, device=lengths.device)
+    u = torch.rand(n_draw or lengths.shape[0], generator=generator, device=lengths.device)
+    if rows is not None:
+        u = u[rows]
     return (u * max_start).to(torch.int32)
 
 

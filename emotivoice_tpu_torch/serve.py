@@ -9,13 +9,22 @@ Runs on FastAPI when uvicorn is installed, else on the stdlib HTTP server.
 POST /v1/audio/speech with {"input", "voice", "prompt", "response_format",
 "speed", "stream"}. Without --checkpoint the parameters are random, made
 from `--seed`; without --style-encoder the embeddings are zero (smoke mode).
-One device: the data-/model-parallel and multi-host modes of the JAX server
-are not part of the port yet.
+
+`--data-parallel N` holds one replica of the model on each of cuda:0 ..
+cuda:N-1 (N CPU replicas with `--device cpu`) and splits every batch over
+them; fewer cards than N is an error. `--multihost` runs one server per
+process, as the JAX server does: each joins the process group of the
+torchrun environment (RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR,
+MASTER_PORT), holds a full replica on cuda:LOCAL_RANK (or `--device`) and
+answers on its own `--port`, behind a load balancer; requests never cross
+processes. The model-parallel mode of the JAX server is a later slice.
 """
 
 from __future__ import annotations
 
 import argparse
+
+import torch
 
 
 def main(argv=None):
@@ -43,9 +52,20 @@ def main(argv=None):
                    help="disable cross-request micro-batching")
     p.add_argument("--smoke-tiny", action="store_true",
                    help="tiny_test_config model (random parameters), for smoke tests")
-    p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    p.add_argument("--device", default=None,
+                   help="cuda (default; cuda:LOCAL_RANK with --multihost) or cpu")
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--data-parallel", type=int, default=0,
+                   help="replicas on cuda:0..N-1 (N CPU replicas with --device cpu); "
+                        "0 = one device")
+    p.add_argument("--multihost", action="store_true",
+                   help="join the torchrun process group; one server per process, each "
+                        "with a full replica, behind a load balancer")
     args = p.parse_args(argv)
+    if args.data_parallel > 1 and args.multihost:
+        p.error("--data-parallel and --multihost: one server per process holds one replica")
+    if args.data_parallel > 1 and args.device and torch.device(args.device).index is not None:
+        p.error("--data-parallel places its replicas on cuda:0..N-1; name no card index")
 
     from emotivoice_tpu_torch.config import EmotiVoiceConfig, tiny_test_config
     from emotivoice_tpu_torch.frontend.en import read_lexicon
@@ -58,9 +78,28 @@ def main(argv=None):
         build_generator,
         config_and_vocab,
     )
-    from emotivoice_tpu_torch.utils.device import resolve_device
+    from emotivoice_tpu_torch.utils.device import resolve_device, use_exact_f32
 
-    device = resolve_device(args.device)  # raises before any work without a card
+    devices = None
+    if args.multihost:
+        from emotivoice_tpu_torch.parallel.multihost import initialize_multihost, local_rank
+
+        device = resolve_device(args.device or f"cuda:{local_rank()}")
+        if device.type == "cuda" and (device.index or 0) >= torch.cuda.device_count():
+            raise RuntimeError(f"{device} does not exist: {torch.cuda.device_count()} "
+                               "card(s) are visible")
+        rank, world = initialize_multihost(device)
+        print(f"multihost: process {rank} of {world} on {device}", flush=True)
+    else:
+        device = resolve_device(args.device)  # raises before any work without a card
+    if args.data_parallel > 1:
+        n = args.data_parallel
+        if device.type == "cuda" and torch.cuda.device_count() < n:
+            raise RuntimeError(f"--data-parallel {n} needs {n} cards; "
+                               f"{torch.cuda.device_count()} are visible")
+        devices = [torch.device(device.type, i) if device.type == "cuda" else device
+                   for i in range(n)]
+    use_exact_f32(args.dtype)
     cfg, vocab = config_and_vocab(
         tiny_test_config() if args.smoke_tiny else EmotiVoiceConfig(), args.tokenlist)
     speakers = (load_label_list(args.speakers) if args.speakers
@@ -68,7 +107,8 @@ def main(argv=None):
     lexicon = read_lexicon(args.lexicon) if args.lexicon else None
 
     model = build_generator(cfg, args.checkpoint, args.seed)
-    engine = SynthesisEngine(cfg, model, vocab, dtype=args.dtype, device=device)
+    engine = SynthesisEngine(cfg, model, vocab, dtype=args.dtype,
+                             device=None if devices else device, devices=devices)
     embed_fn = build_embed_fn(cfg, args.style_encoder, args.tokenizer, device)
 
     if not args.no_warmup:

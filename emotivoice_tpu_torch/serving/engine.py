@@ -1,17 +1,23 @@
 """Batched synthesis engine: phoneme ids -> waveform with static-shape
-bucketing, on one device (counterpart of `emotivoice_tpu/serving/engine.py`).
+bucketing, on one device or on data-parallel replicas (counterpart of
+`emotivoice_tpu/serving/engine.py`).
 
 Requests are padded into (batch, text, mel) buckets from fixed ladders, so
 a later slice can capture one program per bucket. Padding rows carry one
-token and speaker 0. The mesh / tensor-parallel branch is a later slice.
+token and speaker 0. With several replicas a bucket is padded up to a
+multiple of their count and split evenly over them, as the JAX engine pads
+a batch to its mesh's data axis. The tensor-parallel branch is a later
+slice.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import logging
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -52,16 +58,22 @@ class SynthesisResult:
 
 
 class SynthesisEngine:
-    """Runs a `JETSGenerator` over bucketed batches on one device.
+    """Runs a `JETSGenerator` over bucketed batches on one device, or on one
+    replica per entry of `devices`.
 
     `device` defaults to 'cuda' and raises without a card; pass 'cpu' for
-    the plain PyTorch path. `dtype` is the compute dtype ('f32' / 'bf16' or
-    a torch dtype); parameters stay f32 and the waveform comes back f32.
+    the plain PyTorch path. `devices` (instead of `device`) holds a full
+    replica of the model on each entry, which may repeat a device (two
+    replicas on one card) and may be CPU devices; the replicas run their
+    shares of each bucket at the same time, one thread each, and the rows
+    are gathered back in order. `dtype` is the compute dtype ('f32' /
+    'bf16' or a torch dtype); parameters stay f32 and the waveform comes
+    back f32.
 
     `run` is serialized: it holds one lock for the whole model call, so
     callers on several threads (the batcher's worker, the warmup daemon,
-    a service with batching off) may rely on at most one model call being
-    in progress on this engine at any time.
+    a service with batching off) may rely on at most one bucket being in
+    progress on this engine at any time.
     """
 
     def __init__(
@@ -75,11 +87,19 @@ class SynthesisEngine:
         frames_per_token: float = 8.0,
         dtype: Union[str, torch.dtype] = torch.float32,
         device: Optional[Union[str, torch.device]] = None,
+        devices: Optional[Sequence[Union[str, torch.device]]] = None,
     ):
-        self.device = resolve_device(device)
+        if devices is not None and device is not None:
+            raise ValueError("pass device (one replica) or devices (one replica each), not both")
+        if devices is not None and not devices:
+            raise ValueError("devices must name at least one device")
+        self.devices = [resolve_device(d) for d in (devices or [device])]
+        self.device = self.devices[0]
         self.dtype = resolve_dtype(dtype)
         self.cfg = cfg
         self.model = model.to(self.device).eval()
+        self.replicas = [self.model] + [copy.deepcopy(self.model).to(d).eval()
+                                        for d in self.devices[1:]]
         self.vocab = vocab
         self.text_buckets = tuple(text_buckets)
         self.mel_buckets = tuple(mel_buckets)
@@ -101,20 +121,31 @@ class SynthesisEngine:
         # Shapes of the background grid that raised. The daemon survives
         # them, but they are counted and logged, never dropped silently.
         self.warmup_failures = 0
-        # One model call at a time (see the class docstring): the batcher's
-        # worker and the warmup daemon may both be here, and the kernels'
-        # launch counters (plain `+= 1`) and the allocator's peak are only
-        # exact when calls do not interleave. The card runs them one after
-        # the other anyway.
+        # One bucket at a time (see the class docstring): the batcher's
+        # worker and the warmup daemon may both be here, and the allocator's
+        # peak is only exact when calls do not interleave. The replicas of
+        # one bucket run together; the kernels count their launches under
+        # a lock.
         self._run_lock = threading.Lock()
+        # One thread per replica for the engine's life: PyTorch keeps its
+        # cuBLAS and cuDNN handles per thread, so fresh threads per call
+        # would pay their set-up on every bucket.
+        self._pool = (ThreadPoolExecutor(len(self.replicas), thread_name_prefix="engine-replica")
+                      if len(self.replicas) > 1 else None)
 
-    def run(self, tokens, lengths, speaker, style, content, max_frames: int,
-            alpha: float) -> Tuple[np.ndarray, np.ndarray]:
-        """One padded bucket through the model: numpy in, (wav (B, max_frames
-        * hop) f32, n_frames (B,)) numpy out."""
-        dev = self.device
-        with self._run_lock, torch.inference_mode():
-            out = self.model(
+    def padded_rows(self, b: int) -> int:
+        """Rows of the bucket `b` requests are padded to: the batch bucket,
+        rounded up to a multiple of the replica count."""
+        bb = _bucket(b, self.batch_buckets)
+        n = len(self.replicas)
+        return -(-bb // n) * n
+
+    def _run_replica(self, i: int, arrays, max_frames: int, alpha: float):
+        """Replica i on its rows (inference mode is per thread)."""
+        dev = self.devices[i]
+        tokens, lengths, speaker, style, content = arrays
+        with torch.inference_mode():
+            out = self.replicas[i](
                 torch.as_tensor(tokens, dtype=torch.long, device=dev),
                 torch.as_tensor(lengths, dtype=torch.long, device=dev),
                 torch.as_tensor(speaker, dtype=torch.long, device=dev),
@@ -124,6 +155,28 @@ class SynthesisEngine:
             )
             return (out["wav_predictions"].cpu().numpy(),
                     out["output_lengths"].cpu().numpy())
+
+    def run(self, tokens, lengths, speaker, style, content, max_frames: int,
+            alpha: float) -> Tuple[np.ndarray, np.ndarray]:
+        """One padded bucket through the model: numpy in, (wav (B, max_frames
+        * hop) f32, n_frames (B,)) numpy out. With n replicas, B must be a
+        multiple of n: replica i takes rows [i B/n, (i+1) B/n)."""
+        arrays = (tokens, lengths, speaker, style, content)
+        n = len(self.replicas)
+        with self._run_lock:
+            if n == 1:
+                return self._run_replica(0, arrays, max_frames, alpha)
+            b = len(tokens)
+            if b % n:
+                raise ValueError(f"a bucket of {b} rows does not split over {n} replicas")
+            rows = b // n
+            futures = [self._pool.submit(self._run_replica, i,
+                                         tuple(a[i * rows:(i + 1) * rows] for a in arrays),
+                                         max_frames, alpha)
+                       for i in range(n)]
+            parts = [f.result() for f in futures]
+            return (np.concatenate([w for w, _ in parts]),
+                    np.concatenate([f for _, f in parts]))
 
     def synthesize_batch(self, requests: List[SynthesisRequest]) -> List[SynthesisResult]:
         if not requests:
@@ -185,7 +238,7 @@ class SynthesisEngine:
     def _dispatch(self, requests, token_ids, t_text: int, max_frames: int,
                   alpha: float) -> List[SynthesisResult]:
         b = len(requests)
-        bb = _bucket(b, self.batch_buckets)
+        bb = self.padded_rows(b)
         d = self.cfg.am.bert_embedding
         tokens = np.zeros((bb, t_text), np.int64)
         lengths = np.ones((bb,), np.int64)  # pad rows: 1 token, speaker 0
@@ -211,6 +264,8 @@ class SynthesisEngine:
         return self.synthesize_batch([request])[0]
 
     def _run_dummy(self, rows: int, t_text: int, max_frames: int):
+        n = len(self.replicas)
+        rows = -(-rows // n) * n
         d = self.cfg.am.bert_embedding
         self.run(
             np.zeros((rows, t_text), np.int64), np.ones((rows,), np.int64),
@@ -220,7 +275,7 @@ class SynthesisEngine:
 
     def _warm_one(self, b: int, t_text: int, max_frames: int):
         """Run one (batch, text, mel) bucket on dummy inputs."""
-        self._run_dummy(_bucket(b, self.batch_buckets), t_text, max_frames)
+        self._run_dummy(self.padded_rows(b), t_text, max_frames)
 
     def warmup_grid(self, batches: Sequence[int] = (1, 2, 4, 8, 16)) -> List[Tuple[int, int, int]]:
         """The (batch, text, mel) shapes `warmup_background` walks: for every
@@ -234,7 +289,7 @@ class SynthesisEngine:
                 m = _bucket(int(t * self.frames_per_token), self.mel_buckets)
                 m_next = _bucket(m + 1, self.mel_buckets)
                 for mf in (m, m_next):
-                    key = (_bucket(b, self.batch_buckets), t, mf)
+                    key = (self.padded_rows(b), t, mf)
                     if key not in seen:
                         seen.add(key)
                         work.append(key)

@@ -43,7 +43,9 @@ def main(argv=None):
         config_and_vocab,
     )
     from emotivoice_tpu_torch.utils.audio_io import write_wav
+    from emotivoice_tpu_torch.utils.device import use_exact_f32
 
+    use_exact_f32(args.dtype)
     cfg, vocab = config_and_vocab(EmotiVoiceConfig(), args.tokenlist)
     model = build_generator(cfg, args.checkpoint, args.seed)
     engine = SynthesisEngine(cfg, model, vocab, dtype=args.dtype, device=args.device)

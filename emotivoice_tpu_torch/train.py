@@ -8,8 +8,19 @@
 Runs on the card unless `--device cpu` is given. Without `--style-encoder`
 the style and content embeddings are zeros (smoke mode). Warm start from
 reference `g_*` / `do_*` checkpoints, voice cloning by growing the speaker
-table (`--new-speakers`). One process, one device: the JAX tool's
-`--multihost` and `--jax-cache` do not exist here (argparse refuses them).
+table (`--new-speakers`). The JAX tool's `--jax-cache` does not exist here.
+
+Data parallel over several processes, one rank each, with `--multihost`:
+
+  torchrun --nproc-per-node 2 -m emotivoice_tpu_torch.train --multihost ...
+
+(or RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, MASTER_PORT set by hand).
+Each rank loads its share of the datalist (`shard_datalist`), and
+`--batch-size` is the global batch: each rank takes batch-size // world
+rows. A rank drives `cuda:LOCAL_RANK` unless `--device` names a device;
+there must be a card for each local rank. The backend is NCCL on cards and
+gloo on the CPU unless `--backend` names one: two ranks that share one card
+(`--device cuda:0`) need `--backend gloo`.
 """
 
 from __future__ import annotations
@@ -41,12 +52,48 @@ def main(argv=None):
     p.add_argument("--cache-dir", default=None)
     p.add_argument("--new-speakers", type=int, default=0,
                    help="grow the speaker table by N rows (voice cloning)")
-    p.add_argument("--device", default=None, help="cuda (default) or cpu")
+    p.add_argument("--device", default=None,
+                   help="cuda (default; cuda:LOCAL_RANK with --multihost) or cpu")
     p.add_argument("--seed", type=int, default=None, help="TrainConfig.seed (parameters, draws)")
     p.add_argument("--smoke-tiny", action="store_true",
                    help="tiny_test_config model, for smoke runs")
+    p.add_argument("--multihost", action="store_true",
+                   help="one data-parallel rank per process (torchrun environment); "
+                        "--batch-size is the global batch")
+    p.add_argument("--backend", choices=["nccl", "gloo"], default=None,
+                   help="process-group backend with --multihost (default: nccl on cards, "
+                        "gloo on the CPU)")
     args = p.parse_args(argv)
+    if args.backend and not args.multihost:
+        p.error("--backend needs --multihost")
 
+    import torch
+
+    from emotivoice_tpu_torch.parallel.multihost import initialize_multihost, local_rank
+    from emotivoice_tpu_torch.utils.device import resolve_device
+
+    rank, world = 0, 1
+    if args.multihost:
+        device = resolve_device(args.device or f"cuda:{local_rank()}")
+        if device.type == "cuda":
+            if args.device is None and local_rank() >= torch.cuda.device_count():
+                raise RuntimeError(
+                    f"LOCAL_RANK {local_rank()} needs card {local_rank()} but "
+                    f"{torch.cuda.device_count()} are visible; start fewer ranks per host "
+                    "or name a device with --device")
+            torch.cuda.set_device(device)
+        rank, world = initialize_multihost(device, args.backend)
+        print(f"multihost: rank {rank} of {world} on {device}", flush=True)
+    else:
+        device = resolve_device(args.device)
+    try:
+        _train(args, device, rank, world)
+    finally:
+        if world > 1:
+            torch.distributed.destroy_process_group()
+
+
+def _train(args, device, rank: int, world: int) -> None:
     import numpy as np
     import torch
 
@@ -59,11 +106,10 @@ def main(argv=None):
     from emotivoice_tpu_torch.data.dataset import BucketedLoader, PrefetchLoader, PromptTTSDataset
     from emotivoice_tpu_torch.frontend.tokens import load_label_list
     from emotivoice_tpu_torch.models.jets import JETSGenerator
+    from emotivoice_tpu_torch.parallel.multihost import shard_datalist
     from emotivoice_tpu_torch.serving.loading import build_embed_fn, config_and_vocab
     from emotivoice_tpu_torch.training.loop import train
-    from emotivoice_tpu_torch.utils.device import resolve_device
 
-    device = resolve_device(args.device)
     cfg = EmotiVoiceConfig()
     if args.smoke_tiny:  # the features' mel width follows the tiny model's
         cfg = tiny_test_config()
@@ -83,13 +129,18 @@ def main(argv=None):
     embed_fn = build_embed_fn(cfg, args.style_encoder, args.tokenizer, device)
     dataset = PromptTTSDataset(args.datalist, cfg, vocab, speakers, embed_fn,
                                cache_dir=args.cache_dir, device=device)
-    loader = lambda: PrefetchLoader(BucketedLoader(dataset, args.batch_size))  # noqa: E731
+    # an epoch is the whole datalist at the global batch (the JAX tool
+    # divides the rank's share by the global batch instead)
+    steps_per_epoch = max(len(dataset) // args.batch_size, 1)
+    dataset.utts = shard_datalist(dataset.utts, rank, world)
+    local_bs = max(args.batch_size // world, 1)
+    loader = lambda: PrefetchLoader(BucketedLoader(dataset, local_bs))  # noqa: E731
     valid_loader = None
-    if args.valid_datalist:
+    if args.valid_datalist and rank == 0:  # rank 0 validates
         valid_dataset = PromptTTSDataset(args.valid_datalist, cfg, vocab, speakers, embed_fn,
                                          cache_dir=args.cache_dir, device=device)
         valid_loader = lambda: BucketedLoader(  # noqa: E731
-            valid_dataset, args.batch_size, shuffle=False, drop_last=False, pad_to_batch=True)
+            valid_dataset, local_bs, shuffle=False, drop_last=False, pad_to_batch=True)
 
     warm_start_fn = None
     if args.pretrained_generator:
@@ -109,9 +160,8 @@ def main(argv=None):
                 load_discriminator(trainer.disc, load_checkpoint(args.pretrained_discriminator))
 
     train(cfg, loader, args.output_dir, total_steps=args.total_steps,
-          steps_per_epoch=max(len(dataset) // args.batch_size, 1),
-          valid_batch_iter_fn=valid_loader, warm_start_fn=warm_start_fn,
-          log_every=args.log_every, device=device)
+          steps_per_epoch=steps_per_epoch, valid_batch_iter_fn=valid_loader,
+          warm_start_fn=warm_start_fn, log_every=args.log_every, device=device)
 
 
 if __name__ == "__main__":

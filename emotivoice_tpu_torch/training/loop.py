@@ -10,9 +10,10 @@ Checkpoints are `torch.save` files in the reference's layout, in
     the two Adam states, the segment generator's state and torch's global
     RNG states (dropout), which the JAX package's Orbax state also restores.
 The newest complete pair is resumed; `max_to_keep` pairs are kept. One
-process drives one device; the JAX loop's mesh and multi-host batches are
-not ported (ROADMAP, item G), nor its validation pass before the first
-step, which exists there to compile the eval shapes.
+process drives one device. Over several processes (`dp`, one rank each)
+every rank restores and steps on its own rows, and only rank 0 logs,
+validates and writes checkpoints. The JAX loop's validation pass before the
+first step is not ported: it exists there to compile the eval shapes.
 """
 
 from __future__ import annotations
@@ -28,8 +29,9 @@ import torch
 from emotivoice_tpu_torch.config import EmotiVoiceConfig
 from emotivoice_tpu_torch.models.discriminator import Discriminator
 from emotivoice_tpu_torch.models.jets import JETSGenerator, init_random_
+from emotivoice_tpu_torch.parallel.data_parallel import DataParallel
 from emotivoice_tpu_torch.training.step import TrainStep, learning_rate
-from emotivoice_tpu_torch.utils.device import resolve_device
+from emotivoice_tpu_torch.utils.device import resolve_device, resolve_dtype, use_exact_f32
 
 _INT_KEYS = ("tokens", "text_lengths", "speaker", "mel_lengths")
 
@@ -40,6 +42,27 @@ def to_device(batch: Dict[str, np.ndarray], device: torch.device) -> Dict[str, t
     for k, v in batch.items():
         t = torch.from_numpy(np.asarray(v))
         out[k] = (t.long() if k in _INT_KEYS else t.float()).to(device)
+    return out
+
+
+def batch_widths(batch: Dict[str, np.ndarray]) -> Tuple[int, int]:
+    """(text, mel) padded widths of a collated batch."""
+    return batch["tokens"].shape[1], batch["mel"].shape[1]
+
+
+def pad_batch(batch: Dict[str, np.ndarray], widths) -> Dict[str, np.ndarray]:
+    """A collated batch zero-padded to wider (text, mel) widths; the
+    waveform to mel width x hop."""
+    t_text, t_mel = widths
+    hop = batch["wav"].shape[1] // batch["mel"].shape[1]
+    width = {"tokens": t_text, "mel": t_mel, "pitch": t_mel, "energy": t_mel,
+             "wav": t_mel * hop}
+    out = dict(batch)
+    for k, w in width.items():
+        v = np.asarray(batch[k])
+        pad = [(0, 0)] * v.ndim
+        pad[1] = (0, w - v.shape[1])
+        out[k] = np.pad(v, pad)
     return out
 
 
@@ -126,12 +149,14 @@ class MetricLogger:
                 self.tb.add_scalar(f"{prefix}/{k}", float(v), step)
 
 
-def build_models(cfg: EmotiVoiceConfig, device: torch.device):
-    """The trainer's generator (kernels=False) and discriminator, random
-    parameters from cfg.train.seed (smoke mode, or before a warm start)."""
+def build_models(cfg: EmotiVoiceConfig, device: torch.device,
+                 dtype: Union[str, torch.dtype] = torch.float32):
+    """The trainer's generator (kernels=False) and discriminator (computing
+    in `dtype`), random parameters from cfg.train.seed (smoke mode, or
+    before a warm start)."""
     seed = cfg.train.seed
     model = init_random_(JETSGenerator(cfg, kernels=False), seed).to(device)
-    disc = init_random_(Discriminator(cfg.disc), seed + 1).to(device)
+    disc = init_random_(Discriminator(cfg.disc, resolve_dtype(dtype)), seed + 1).to(device)
     return model, disc
 
 
@@ -147,6 +172,8 @@ def train(
     log_every: int = 50,
     device: Optional[Union[str, torch.device]] = None,
     models: Optional[Tuple[torch.nn.Module, torch.nn.Module]] = None,
+    dtype: Union[str, torch.dtype] = torch.float32,
+    dp: Optional[DataParallel] = None,
 ) -> TrainStep:
     """Run joint AM + vocoder GAN training on `device` (None: the card).
 
@@ -156,26 +183,39 @@ def train(
     warm_start_fn(trainer): applied when no checkpoint exists (the
       reference's --load_pretrained_model).
     models: (generator built with kernels=False, discriminator) on `device`
-      to train; default `build_models(cfg, device)`.
+      to train; default `build_models(cfg, device, dtype)`.
+    dtype: the compute dtype of the train steps and of validation (f32
+      turns TF32 off: `use_exact_f32`).
+    dp: this process's rank of a data-parallel group; default the
+      initialised process group's, else one rank. `batch_iter_fn` then
+      yields this rank's batches; every rank runs the same number of
+      steps per epoch, each step's batches padded to one shape
+      (`DataParallel.agreed`).
     Returns the TrainStep (models, optimizers, update count)."""
     device = resolve_device(device)
-    torch.manual_seed(cfg.train.seed)
-    logger = MetricLogger(os.path.join(output_dir, "log"))
+    use_exact_f32(dtype)
+    dp = dp if dp is not None else DataParallel.from_process_group(device)
+    main = dp.is_main()
+    torch.manual_seed(cfg.train.seed)  # the same dropout stream on every rank
+    logger = MetricLogger(os.path.join(output_dir, "log")) if main else None
     ckpts = CheckpointManager(os.path.join(output_dir, "ckpt"))
-    model, disc = models if models is not None else build_models(cfg, device)
-    trainer = TrainStep(cfg, model, disc, steps_per_epoch)
+    model, disc = models if models is not None else build_models(cfg, device, dtype)
+    trainer = TrainStep(cfg, model, disc, steps_per_epoch, dtype, dp)
     restored = ckpts.restore(trainer)
     if restored is not None:
-        print(f"resumed from step {restored}", flush=True)
+        if main:
+            print(f"resumed from step {restored}", flush=True)
     elif warm_start_fn is not None:
         warm_start_fn(trainer)
-        print("warm-started from pretrained checkpoint", flush=True)
+        if main:
+            print("warm-started from pretrained checkpoint", flush=True)
 
-    if validate_fn is None and valid_batch_iter_fn is not None:
+    if main and validate_fn is None and valid_batch_iter_fn is not None:
         from emotivoice_tpu_torch.training.validate import make_validate_fn
 
         validate_fn = make_validate_fn(
-            cfg, model, lambda: (to_device(b, device) for b in valid_batch_iter_fn()), logger)
+            cfg, model, lambda: (to_device(b, device) for b in valid_batch_iter_fn()), logger,
+            dtype=trainer.dtype)
 
     model.train()
     disc.train()
@@ -183,22 +223,22 @@ def train(
     t_start, t_paused = time.time(), 0.0  # validation / checkpoint time is left out of s/s
     while trainer.count < total_steps:
         seen = False
-        for batch in batch_iter_fn():
+        for batch in dp.agreed(batch_iter_fn(), batch_widths, pad_batch):
             seen = True
             metrics = trainer(to_device(batch, device))
             step = trainer.count
-            if step % log_every == 0:
+            if main and step % log_every == 0:
                 metrics = {k: float(v) for k, v in metrics.items()}
                 metrics["lr"] = learning_rate(cfg, step, steps_per_epoch)
                 metrics["epoch"] = step // steps_per_epoch
                 metrics["steps_per_sec"] = log_every / max(time.time() - t_start - t_paused, 1e-6)
                 t_start, t_paused = time.time(), 0.0
                 logger.log(step, metrics)
-            if validate_fn is not None and step % t.iters_per_validation == 0:
+            if main and validate_fn is not None and step % t.iters_per_validation == 0:
                 t0 = time.time()
                 validate_fn(step)
                 t_paused += time.time() - t0
-            if step % t.iters_per_checkpoint == 0:
+            if main and step % t.iters_per_checkpoint == 0:
                 t0 = time.time()
                 ckpts.save(trainer)
                 t_paused += time.time() - t0
@@ -207,5 +247,6 @@ def train(
         if not seen:
             raise ValueError("the training loader yielded no batch (fewer utterances "
                              "than one batch per bucket?)")
-    ckpts.save(trainer)
+    if main:
+        ckpts.save(trainer)
     return trainer

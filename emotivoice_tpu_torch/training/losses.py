@@ -10,7 +10,7 @@ those two into TTSLoss's mel slots (`train_am_vocoder_joint.py:344-372`).
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -19,10 +19,13 @@ from emotivoice_tpu_torch.utils.masks import sequence_mask
 
 
 def masked_l1(pred: torch.Tensor, target: torch.Tensor, valid: torch.Tensor,
-              axis_size_norm: float = 1.0) -> torch.Tensor:
+              axis_size_norm: float = 1.0,
+              n_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """sum |pred - target| over valid positions / their count. `n_valid`
+    replaces the count (a data-parallel rank's share of the global one)."""
     valid = valid.to(pred.dtype)
-    return torch.sum(torch.abs(pred - target) * valid) / (
-        torch.clamp(torch.sum(valid), min=1.0) * axis_size_norm)
+    count = torch.clamp(torch.sum(valid), min=1.0) if n_valid is None else n_valid
+    return torch.sum(torch.abs(pred - target) * valid) / (count * axis_size_norm)
 
 
 def segment_mel_l1(pred_mel: torch.Tensor, gt_mel: torch.Tensor) -> torch.Tensor:
@@ -30,15 +33,20 @@ def segment_mel_l1(pred_mel: torch.Tensor, gt_mel: torch.Tensor) -> torch.Tensor
     return torch.mean(torch.abs(pred_mel - gt_mel))
 
 
-def prosody_losses(outputs: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+def prosody_losses(outputs: Dict[str, torch.Tensor],
+                   n_valid: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
     """Masked L1 of log durations (log(d + 1)), pitch and energy against
-    the alignment's token-level targets (reference loss.py:147-185)."""
+    the alignment's token-level targets (reference loss.py:147-185).
+    `n_valid` replaces the batch's count of valid tokens (`masked_l1`)."""
     valid = sequence_mask(outputs["input_lengths"], outputs["duration_targets"].shape[1])
     log_d_target = torch.log(outputs["duration_targets"].float() + 1.0)
     return {
-        "dur_loss": masked_l1(outputs["log_duration_predictions"], log_d_target, valid),
-        "pitch_loss": masked_l1(outputs["pitch_predictions"], outputs["pitch_targets"], valid),
-        "energy_loss": masked_l1(outputs["energy_predictions"], outputs["energy_targets"], valid),
+        "dur_loss": masked_l1(outputs["log_duration_predictions"], log_d_target, valid,
+                              n_valid=n_valid),
+        "pitch_loss": masked_l1(outputs["pitch_predictions"], outputs["pitch_targets"], valid,
+                                n_valid=n_valid),
+        "energy_loss": masked_l1(outputs["energy_predictions"], outputs["energy_targets"],
+                                 valid, n_valid=n_valid),
     }
 
 

@@ -38,15 +38,16 @@ def plot_mel_comparison(gt_mel: np.ndarray, pred_mel: np.ndarray):
     return fig
 
 
-def eval_step(model, batch: Dict[str, torch.Tensor]):
-    """Validation losses, decoded mel and waveform of one batch (on the
-    batch's device, no host sync)."""
+def eval_step(model, batch: Dict[str, torch.Tensor], dtype: torch.dtype = torch.float32):
+    """Validation losses, decoded mel and waveform of one batch in compute
+    `dtype` (on the batch's device, no host sync)."""
     with torch.inference_mode():
         out = model(
             batch["tokens"], batch["text_lengths"], batch["speaker"],
             batch["style_embedding"], batch["content_embedding"],
             mel_targets=batch["mel"], feats_lengths=batch["mel_lengths"],
             pitch_targets=batch["pitch"], energy_targets=batch["energy"], cut=False,
+            dtype=dtype,
         )
         mel = batch["mel"]
         valid = sequence_mask(batch["mel_lengths"], mel.shape[1]).float()
@@ -57,9 +58,10 @@ def eval_step(model, batch: Dict[str, torch.Tensor]):
 
 
 def make_validate_fn(cfg, model, valid_batches: Callable[[], Iterable[Dict[str, torch.Tensor]]],
-                     logger, max_batches: int = 8):
+                     logger, max_batches: int = 8, dtype: torch.dtype = torch.float32):
     """validate(step): mean losses over at most `max_batches` batches of
-    `valid_batches()` (tensors on the model's device), logged with prefix
+    `valid_batches()` (tensors on the model's device, computed in `dtype`:
+    in bf16 both kernels run in bf16), logged with prefix
     "valid"; the first item's wav written beside the text log; the audio to
     tensorboard when the logger has it, the mel figure too when matplotlib
     is installed."""
@@ -73,13 +75,13 @@ def make_validate_fn(cfg, model, valid_batches: Callable[[], Iterable[Dict[str, 
             agg: Dict[str, float] = {}
             n, sample = 0, None
             for batch in valid_batches():
-                metrics, pred_mel, wav = eval_step(model, batch)
+                metrics, pred_mel, wav = eval_step(model, batch, dtype)
                 for k, v in metrics.items():
                     agg[k] = agg.get(k, 0.0) + float(v)
                 if sample is None:
                     ml = int(batch["mel_lengths"][0])
-                    sample = (batch["mel"][0, :ml].cpu().numpy(), pred_mel[0, :ml].cpu().numpy(),
-                              wav[0].cpu().numpy())
+                    sample = (batch["mel"][0, :ml].cpu().numpy(),
+                              pred_mel[0, :ml].float().cpu().numpy(), wav[0].cpu().numpy())
                 n += 1
                 if n >= max_batches:
                     break

@@ -28,3 +28,12 @@ def resolve_dtype(dtype: Union[str, torch.dtype]) -> torch.dtype:
     if out not in (torch.float32, torch.bfloat16):
         raise ValueError(f"compute dtype must be f32 or bf16, got {dtype!r}")
     return out
+
+
+def use_exact_f32(dtype: Union[str, torch.dtype]) -> None:
+    """An f32 compute dtype means f32: PyTorch lets cuDNN convolutions (and,
+    when asked, cuBLAS matmuls) run in TF32, a 10-bit mantissa, so turn both
+    off. bf16 leaves the flags as they are."""
+    if resolve_dtype(dtype) == torch.float32:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False

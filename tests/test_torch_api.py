@@ -563,11 +563,15 @@ def test_serve_cli_needs_a_card():
 
 
 def test_serve_cli_rejects_the_parallel_flags():
+    """The JAX server's flags the port has no counterpart of, and the
+    data-parallel ones in combinations it refuses."""
     from emotivoice_tpu_torch import serve
 
-    for flag in ("--data-parallel=2", "--model-parallel=2", "--multihost", "--use-pallas"):
+    for flags in (["--model-parallel=2", "--device", "cpu"], ["--use-pallas", "--device", "cpu"],
+                  ["--data-parallel=2", "--multihost", "--device", "cpu"],
+                  ["--data-parallel=2", "--device", "cuda:1"]):
         with pytest.raises(SystemExit):
-            serve.main([flag, "--device", "cpu"])
+            serve.main(flags)
 
 
 def test_serve_cli_serves_on_the_cpu(monkeypatch):

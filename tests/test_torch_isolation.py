@@ -16,6 +16,9 @@ TRAINING_SLICE = {f"emotivoice_tpu_torch.{m}" for m in (
     "models.discriminator", "training", "training.losses", "training.step",
     "training.validate", "training.loop", "data", "data.dataset", "data.synthetic_corpus",
     "train")}
+PARALLEL_SLICE = {f"emotivoice_tpu_torch.{m}" for m in (
+    "parallel", "parallel.multihost", "parallel.data_parallel", "training.style_pretrain",
+    "serve", "serving.engine")}
 PKG = os.path.join(ROOT, "emotivoice_tpu_torch")
 
 
@@ -41,8 +44,9 @@ def test_every_port_module_imports_without_jax():
     assert res.returncode == 0, res.stderr
     names, leaked = res.stdout.strip().splitlines()[-2:]
     names = set(names.split())
-    assert len(names) >= 56 and leaked == "[]"
+    assert len(names) >= 60 and leaked == "[]"
     assert TRAINING_SLICE <= names, sorted(TRAINING_SLICE - names)
+    assert PARALLEL_SLICE <= names, sorted(PARALLEL_SLICE - names)
 
 
 def test_no_source_line_imports_jax_or_the_jax_package():
