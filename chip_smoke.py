@@ -88,7 +88,34 @@ Phases (any failure exits non-zero and prints no result line):
   11. style_pretrain - the full-width style encoder: one PretrainStep card
                 vs CPU (dropout off), then `pretrain` for 5 steps at batch
                 16 (dropout on): ms per step;
-  12. summary - a `kernels` JSON line, then the result line.
+  12. fallback - the checkpoint-free fallback vocoder at the full-width
+                audio config (80 mels, n_fft 1024, hop 256, 16 kHz):
+                mel_to_linear then griffin_lim(32) on the card and on the
+                CPU, from the mel of a seeded 2 s two-tone signal and of a
+                batch of 16 x 384 frames; mel_to_linear, istft and
+                stft_phase card vs CPU, the phase-blind spectral error of
+                the reconstructions card vs CPU; ms per griffin_lim call;
+  13. corpus  - `tools.synthesize_corpus.main` in this process on 44 lines
+                this script writes (40 English, 4 with hanzi, which g2p
+                skips without pypinyin), full-width model with random
+                parameters, f32 then bf16 at batch 16, then once more on
+                the bf16 directory (renders nothing); transcripts, wavs,
+                the speaker / prompt round-robin, 18 + 2 launches per
+                generator call, both kernels against their plain versions
+                at every shape the runs gave them; lines/s and xRT;
+  14. sweep   - `tools.sweep_voices.main`: 4 speakers x 4 prompts in f32 on
+                the CPU with --save-wavs, the same cells on the card with
+                --compare (MAE within 2e-3 x max, equal lengths), then 64 x
+                4 = 256 cells in bf16 at batch 16 with --save-wavs; finite
+                waveforms, launches and kernels as in [corpus]; RTF p50/p95;
+  15. tools   - the native wav codec must be built here; the released-
+                weights check on [train]'s newest g_/do_ pair and [style]'s
+                encoder (gates 1-2 pass, gate 3 "not run": no reference
+                repository), with launches and kernels as above;
+                prepare_ljspeech / prepare_databaker on small corpora at
+                22.05 / 44.1 kHz this script writes (resampled natively);
+                record_frontend_goldens --check;
+  16. summary - a `kernels` JSON line, then the result line.
 
 With --report, the detailed numbers are also written to PATH as JSON.
 With --profile, torch.profiler also measures the time the card is busy
@@ -111,6 +138,7 @@ import sys
 import tempfile
 import threading
 import time
+import types
 import zlib
 
 import numpy as np
@@ -1520,6 +1548,11 @@ def phase_train(dev, profiled: bool = False) -> dict:
         if not (worst_loss <= TOL_TRAIN_LOSS_BF16 and worst_grad <= TOL_TRAIN_GRAD_BF16):
             fail(f"[train] bf16: card and CPU disagree: {cmp16['loss_rel_err']} "
                  f"{cmp16['grad_rel_err']}")
+        # [tools] loads the newest pair, in the reference's format, with its tokenlist
+        keep = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+        for kind in ("g", "do"):
+            shutil.move(os.path.join(out, "ckpt", f"{kind}_{TRAIN_RESUMED_TO:08d}"), keep)
+        shutil.copy(os.path.join(corpus, "tokenlist"), keep)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     report["train"] = dict(
@@ -1529,7 +1562,7 @@ def phase_train(dev, profiled: bool = False) -> dict:
         step_wall_ms_median=wall_ms, steps_per_s=1e3 / wall_ms, split_ms=split,
         valid_ms=valid_ms, resumed_said=said, card_vs_cpu=cmp, steady=steady,
         card_vs_cpu_bf16=cmp16, card_vs_cpu_bf16_trained=cmp16_trained)
-    return dict(launches=in_valid, launches_steps=in_steps, path=path)
+    return dict(launches=in_valid, launches_steps=in_steps, path=path, ckpt_dir=keep)
 
 
 def phase_train_curves(dev) -> dict:
@@ -2096,6 +2129,388 @@ def phase_style_pretrain(dev) -> dict:
     return dict(step_ms=ms)
 
 
+# ---------------------------------------------------------------------------
+# 12. the fallback vocoder; 13-15. the user tools
+# ---------------------------------------------------------------------------
+
+FALLBACK_B, FALLBACK_FRAMES, FALLBACK_ITERS = 16, 384, 32
+TOL_FALLBACK = 1e-4  # istft, stft_phase (as |X| e^{i phase}), mel_to_linear: card vs CPU, of max
+TOL_FALLBACK_SPECTRAL = 1e-3  # |spectral error on the card - on the CPU| after 32 rounds
+CORPUS_B, SWEEP_B, SWEEP_SPEAKERS, SWEEP_CHECKED = 16, 16, 64, 4
+CORPUS_WORDS = ("the quick brown fox jumps over a lazy dog while morning light falls on quiet "
+                "river water and children sing happy songs near old stone bridges where "
+                "gentle voices call home every evening before dinner").split()
+CORPUS_HANZI = ["今天天气不错。", "我们用Python做TTS。", "你好，世界。", "请打开App然后点击开始。"]
+
+
+class PathWatch:
+    """Counts the calls of every HiFi-GAN generator that runs inside the
+    `with` block with its kernels on (the tools build their own models) and
+    records the (B, T, C, dtype) each hands to a kernel; the launch counters
+    are set to 0 on entry and read on exit."""
+
+    def __enter__(self):
+        from emotivoice_tpu_torch.models.hifigan import HiFiGANGenerator
+        from emotivoice_tpu_torch.ops.cuda.mrf_stage import fused_mrf_stage
+        from emotivoice_tpu_torch.ops.cuda.resblock import fused_residual_unit
+
+        self.kernels = {"fused_residual_unit": fused_residual_unit,
+                        "fused_mrf_stage": fused_mrf_stage}
+        self.calls, self.seen, self._hooks = 0, {}, []
+        self._cls, self._forward = HiFiGANGenerator, HiFiGANGenerator.forward
+        watch = self
+
+        def forward(gen, *args, **kwargs):
+            if gen.kernels:
+                if id(gen) not in watch.seen:
+                    shapes, hooks = watch_stage_shapes(types.SimpleNamespace(generator=gen))
+                    watch.seen[id(gen)] = (gen, shapes)
+                    watch._hooks += hooks
+                watch.calls += 1
+            return watch._forward(gen, *args, **kwargs)
+
+        for k in self.kernels.values():
+            k.launches = 0
+        HiFiGANGenerator.forward = forward
+        return self
+
+    def __exit__(self, *exc):
+        self._cls.forward = self._forward
+        for h in self._hooks:
+            h.remove()
+        self.launches = {name: k.launches for name, k in self.kernels.items()}
+        return False
+
+    def check(self, dev, tag: str) -> dict:
+        """Launches of 18 + 2 (V1) per generator call, then both kernels
+        against their plain versions at every recorded shape."""
+        if not self.calls:
+            fail(f"[{tag}] no generator call ran with the kernels")
+        per = None
+        for gen, _ in self.seen.values():
+            p = launches_per_call(gen.cfg)
+            if per not in (None, p):
+                fail(f"[{tag}] generators of two vocoder configs ran")
+            per = p
+        want = {"fused_residual_unit": per[0] * self.calls, "fused_mrf_stage": per[1] * self.calls}
+        if self.launches != want:
+            fail(f"[{tag}] launch counters {self.launches} != {per[0]} + {per[1]} per generator "
+                 f"call x {self.calls}")
+        merged = dict(worst={}, worst_rel={}, shapes={})
+        for i, (gen, shapes) in enumerate(self.seen.values()):
+            r = check_path_kernels(dev, types.SimpleNamespace(generator=gen), shapes, f"{tag}{i}")
+            for key, fold in (("worst", max), ("worst_rel", max),
+                              ("shapes", lambda a, b: a + b)):
+                for name, v in r[key].items():
+                    merged[key][name] = fold(merged[key].get(name, 0), v)
+        return merged
+
+
+def _add_launches(*watches) -> dict:
+    return {name: sum(w.launches[name] for w in watches) for name in watches[0].launches}
+
+
+def _merge_paths(*paths) -> dict:
+    return {key: {name: (max if key != "shapes" else sum)(p[key][name] for p in paths)
+                  for name in paths[0][key]} for key in ("worst", "worst_rel", "shapes")}
+
+
+def _two_tone(sr: int, n: int, f1: float, f2: float, seed: int) -> np.ndarray:
+    t = np.arange(n) / sr
+    noise = np.random.RandomState(seed).randn(n)
+    return (0.3 * np.sin(2 * np.pi * f1 * t) + 0.2 * np.sin(2 * np.pi * f2 * t)
+            + 0.01 * noise).astype(np.float32)
+
+
+def spectral_error(rec: torch.Tensor, ref: np.ndarray, a) -> float:
+    """The phase-blind error of tests/test_dsp.py's Griffin-Lim test: sum
+    |STFT magnitude difference| / sum |STFT magnitude of the reference|, on
+    the CPU, over every row, one hop cut off at each end."""
+    from emotivoice_tpu_torch.ops.stft import stft_magnitude
+
+    n, hop = ref.shape[-1], a.hop_length
+    ma = stft_magnitude(rec.float().cpu()[:, hop:n - hop], a.n_fft, hop, a.win_length)
+    mb = stft_magnitude(torch.from_numpy(ref[:, hop:n - hop]), a.n_fft, hop, a.win_length)
+    return float((ma - mb).abs().sum() / mb.abs().sum())
+
+
+def phase_fallback(dev) -> dict:
+    from emotivoice_tpu_torch.config import AudioConfig
+    from emotivoice_tpu_torch.ops.mel import mel_spectrogram, mel_to_linear
+    from emotivoice_tpu_torch.ops.stft import griffin_lim, istft, stft_magnitude, stft_phase
+
+    a = AudioConfig()  # the full-width model's: 80 mels, n_fft 1024, hop 256, 16 kHz
+    fft = (a.n_fft, a.hop_length, a.win_length)
+    cpu = torch.device("cpu")
+    n = a.hop_length * (FALLBACK_FRAMES - 1)  # FALLBACK_FRAMES centred frames
+    inputs = {
+        "2 s two-tone": _two_tone(a.sampling_rate, 2 * a.sampling_rate, 220.0, 1200.0, SEED)[None],
+        f"batch {FALLBACK_B} x {FALLBACK_FRAMES} frames": np.stack([
+            _two_tone(a.sampling_rate, n, 110.0 * (1 + i % 8), 900.0 + 150.0 * i, SEED + 1 + i)
+            for i in range(FALLBACK_B)]),
+    }
+    out = {}
+    for name, wav in inputs.items():
+        mel = mel_spectrogram(torch.from_numpy(wav), a.sampling_rate, *fft, a.n_mels, a.fmin,
+                              a.fmax)
+        lin, rec = {}, {}
+        for key, d in (("card", dev), ("cpu", cpu)):
+            lin[key] = mel_to_linear(mel.to(d), a.sampling_rate, a.n_fft, a.n_mels, a.fmin, a.fmax)
+            rec[key] = griffin_lim(lin[key], FALLBACK_ITERS, *fft).cpu()
+        want = lin["cpu"]
+        lin_err = float((lin["card"].cpu() - want).abs().max() / want.abs().max())
+        # one istft and one analysis, seeded phases / the input signal
+        phase = torch.from_numpy(np.random.RandomState(SEED).uniform(
+            -np.pi, np.pi, tuple(want.shape)).astype(np.float32))
+        got_i, want_i = istft(lin["card"], phase.to(dev), *fft).cpu(), istft(want, phase, *fft)
+        istft_err = float((got_i - want_i).abs().max() / want_i.abs().max())
+        x = torch.from_numpy(wav)
+        ph_card, ph_cpu = stft_phase(x.to(dev), *fft).cpu().double(), stft_phase(x, *fft).double()
+        mag = stft_magnitude(x, *fft).double()
+        phase_err = float((mag * (torch.polar(torch.ones_like(ph_card), ph_card)
+                                  - torch.polar(torch.ones_like(ph_cpu), ph_cpu)).abs()).max()
+                          / mag.max())
+        errs = {d: spectral_error(rec[d], wav, a) for d in rec}
+        finite = all(r.shape == wav.shape and bool(torch.isfinite(r).all()) for r in rec.values())
+        log(f"[fallback] {name}: mel_to_linear card vs CPU {lin_err:.2e}, istft {istft_err:.2e}, "
+            f"stft_phase (as |X| e^(i phase)) {phase_err:.2e} of max (tol {TOL_FALLBACK}); "
+            f"after griffin_lim({FALLBACK_ITERS}) the spectral error against the input is "
+            f"{errs['card']:.5f} on the card, {errs['cpu']:.5f} on the CPU (tol "
+            f"{TOL_FALLBACK_SPECTRAL} apart)")
+        if not finite or max(lin_err, istft_err, phase_err) > TOL_FALLBACK:
+            fail(f"[fallback] {name}: card and CPU disagree, or the waveform is not finite")
+        if abs(errs["card"] - errs["cpu"]) > TOL_FALLBACK_SPECTRAL:
+            fail(f"[fallback] {name}: spectral errors {errs} differ by more than "
+                 f"{TOL_FALLBACK_SPECTRAL}")
+        out[name] = dict(mel_to_linear_err=lin_err, istft_err=istft_err, stft_phase_err=phase_err,
+                         spectral_error=errs)
+    lin_b = lin["card"]
+    ms = timed(lambda: griffin_lim(lin_b, FALLBACK_ITERS, *fft), iters=3)
+    log(f"[fallback] griffin_lim at {FALLBACK_B} x {FALLBACK_FRAMES} frames x {FALLBACK_ITERS} "
+        f"rounds on the card: {ms:.2f} ms per call ({ms / FALLBACK_ITERS:.3f} ms per round)")
+    report["fallback"] = dict(inputs=out, griffin_lim_ms=ms)
+    return dict(griffin_lim_ms=ms)
+
+
+def _corpus_lines() -> list:
+    rng = np.random.RandomState(SEED)
+    lines = []
+    for i in range(40):
+        words = list(rng.choice(CORPUS_WORDS, 3 + i % 16))
+        lines.append(" ".join(words).capitalize() + ".?!"[i % 3])
+    for i, text in enumerate(CORPUS_HANZI):  # g2p needs pypinyin for these
+        lines.insert(10 * i + 9, text)
+    return lines
+
+
+def phase_corpus(dev) -> dict:
+    from emotivoice_tpu_torch.tools import synthesize_corpus
+    from emotivoice_tpu_torch.utils.audio_io import read_wav
+
+    lines = _corpus_lines()
+    hanzi_ok = importlib.util.find_spec("pypinyin") is not None
+    n_wavs = sum(hanzi_ok or t not in CORPUS_HANZI for t in lines)
+    prompts = synthesize_corpus.DEFAULT_PROMPTS
+    n_speaker = synthesize_corpus.model_config().am.n_speaker  # no --speakers: every row
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_corpus_")
+    runs, watches, paths = {}, [], []
+    try:
+        text_file = os.path.join(tmp, "lines.txt")
+        with open(text_file, "w", encoding="utf-8") as f:
+            f.write("\n".join(lines) + "\n")
+        for dname in ("f32", "bf16", "bf16 again"):
+            out_dir = os.path.join(tmp, dname.split()[0])
+            with PathWatch() as w:  # no --device: the card, as a user runs it
+                stats = synthesize_corpus.main(["--text-file", text_file, "--output-dir", out_dir,
+                                                "--dtype", dname.split()[0],
+                                                "--batch-size", str(CORPUS_B)])
+            torch.cuda.synchronize()
+            runs[dname] = dict(stats=stats, generator_calls=w.calls, launches=w.launches)
+            if dname == "bf16 again":
+                if stats["rendered"] or stats["skipped_existing"] != n_wavs or w.calls:
+                    fail(f"[corpus] a second run on the same directory rendered again: {stats}")
+                log(f"[corpus] the same file again into the bf16 directory: {stats['rendered']} "
+                    f"lines rendered, {stats['skipped_existing']} skipped as done")
+                continue
+            watches.append(w)
+            paths.append(w.check(dev, f"corpus_{dname}"))
+            names = sorted(os.listdir(out_dir))
+            txts = [n for n in names if n.endswith(".txt")]
+            wavs = [n for n in names if n.endswith(".wav")]
+            if len(txts) != len(lines) or len(wavs) != n_wavs or stats["rendered"] != n_wavs:
+                fail(f"[corpus] {dname}: {len(txts)} transcripts, {len(wavs)} wavs for "
+                     f"{len(lines)} lines ({n_wavs} renderable): {stats}")
+            for i, text in enumerate(lines):
+                with open(os.path.join(out_dir, f"{i:06d}.txt"), encoding="utf-8") as f:
+                    spk, prompt, said = f.read().rstrip("\n").split("|")
+                if (int(spk) != i % n_speaker or prompt != prompts[i % len(prompts)]
+                        or said != text):
+                    fail(f"[corpus] line {i}: {spk}|{prompt}|{said} breaks the round-robin")
+            audio = [read_wav(os.path.join(out_dir, n))[1] for n in wavs]
+            if not all(len(x) and np.all(np.isfinite(x)) for x in audio):
+                fail(f"[corpus] {dname}: an empty or non-finite wav")
+            log(f"[corpus] {dname}: {len(lines)} lines ({stats['g2p_failed']} failed g2p, "
+                f"hanzi without pypinyin), {stats['rendered']} wavs in {w.calls} generator calls "
+                f"at batch {CORPUS_B}, {stats['wall_s']:.2f} s ({stats['synth_s']:.2f} s of it in "
+                f"SynthesisEngine.synthesize_batch): "
+                f"{stats['rendered'] / stats['wall_s']:.2f} lines/s, xRT "
+                f"{stats['audio_s'] / stats['wall_s']:.1f} ({stats['audio_s']:.1f} s of audio); "
+                f"launches {w.launches}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    report["corpus"] = runs
+    return dict(launches=_add_launches(*watches), path=_merge_paths(*paths),
+                path_f32=paths[0], runs=runs)
+
+
+def phase_sweep(dev) -> dict:
+    from emotivoice_tpu_torch.tools import sweep_voices
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_sweep_")
+    try:
+        cpu_wavs, big_wavs = os.path.join(tmp, "cpu_wavs"), os.path.join(tmp, "wavs")
+        rows_cpu, rows_card, rows_big = (os.path.join(tmp, f"{n}.jsonl")
+                                         for n in ("cpu", "card", "big"))
+        base = ["--batch-size", str(SWEEP_B)]
+        t0 = time.perf_counter()
+        cpu = sweep_voices.main(base + ["--device", "cpu", "--dtype", "f32", "--limit",
+                                        str(SWEEP_CHECKED), "--save-wavs", cpu_wavs,
+                                        "--out", rows_cpu])
+        cpu_s = time.perf_counter() - t0
+        with PathWatch() as w32:
+            card = sweep_voices.main(base + ["--dtype", "f32", "--limit", str(SWEEP_CHECKED),
+                                             "--compare", cpu_wavs, "--out", rows_card])
+        path32 = w32.check(dev, "sweep_f32")
+        rows = [json.loads(line) for line in open(rows_card)]
+        scale = max(json.loads(line)["peak"] for line in open(rows_cpu))
+        mae = max(r["ref_mae"] for r in rows)
+        log(f"[sweep] {card['cells']} cells ({SWEEP_CHECKED} speakers x {card['prompts']} "
+            f"prompts) f32 on the CPU ({cpu_s:.1f} s) then on the card with --compare: worst MAE "
+            f"{mae:.2e} (max |wav| {scale:.3f}, tol {TOL_CPU} x max), length deltas "
+            f"{sorted({r['ref_len_delta'] for r in rows})}; launches {w32.launches} over "
+            f"{w32.calls} generator calls")
+        if (len(rows) != cpu["cells"] or any(r["ref_len_delta"] for r in rows)
+                or scale < 1e-3 or mae > TOL_CPU * scale or card["failures"] or cpu["failures"]):
+            fail("[sweep] the card's cells disagree with the CPU's")
+        with PathWatch() as w16:
+            big = sweep_voices.main(base + ["--dtype", "bf16", "--limit", str(SWEEP_SPEAKERS),
+                                            "--save-wavs", big_wavs, "--out", rows_big])
+        path16 = w16.check(dev, "sweep_bf16")
+        rows = [json.loads(line) for line in open(rows_big)]
+        cells = SWEEP_SPEAKERS * len(sweep_voices.DEFAULT_PROMPTS)
+        if (big["cells"] != cells or len(rows) != cells or big["failures"]
+                or not all(r["finite"] for r in rows) or len(os.listdir(big_wavs)) != cells):
+            fail(f"[sweep] bf16 sweep: {big}")
+        log(f"[sweep] {cells} cells ({SWEEP_SPEAKERS} speakers x {big['prompts']} prompts) bf16 at "
+            f"batch {SWEEP_B}: every waveform finite, peak {big['peak']['min']:.3f}-"
+            f"{big['peak']['max']:.3f}; per-cell RTF p50 {big['rtf']['p50']:.3g}, p95 "
+            f"{big['rtf']['p95']:.3g}, max {big['rtf']['max']:.3g}; {big['wall_s']} s; launches "
+            f"{w16.launches} over {w16.calls} generator calls (probe + timed dispatch per group)")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    report["sweep"] = dict(cpu=cpu, card=card, big=big, cpu_s=cpu_s)
+    return dict(launches=_add_launches(w32, w16), path=_merge_paths(path32, path16),
+                path_f32=path32, rtf=big["rtf"])
+
+
+def _lj_corpus(root: str, sr: int) -> int:
+    from scipy.io import wavfile
+
+    os.makedirs(os.path.join(root, "wavs"))
+    texts = ["Printing, in the only sense with which we are concerned.", "Is this the way?",
+             "Hello world.", "The quick brown fox jumps.", "Speech synthesis at last!"]
+    with open(os.path.join(root, "metadata.csv"), "w", encoding="utf-8") as f:
+        for i, text in enumerate(texts):
+            f.write(f"LJ001-{i + 1:04d}|{text}|{text}\n")
+            wavfile.write(os.path.join(root, "wavs", f"LJ001-{i + 1:04d}.wav"), sr,
+                          (_two_tone(sr, sr // 2, 220.0, 1700.0, i) * 32767).astype(np.int16))
+    return len(texts)
+
+
+def _databaker_corpus(root: str, sr: int) -> int:
+    from scipy.io import wavfile
+
+    pairs = [("000001", "你#1去哪儿#3。", "ni3 qu4 na3r"), ("000002", "我#2爱#1中国#4。",
+              "wo3 ai4 zhong1 guo2"), ("002365", "坏#4。", "huai4"),
+             ("005107", "生嗯#4。", "sheng1 ng1"), ("000005", "小孩儿#1玩#4。", "xiao3 har2 wan2")]
+    os.makedirs(os.path.join(root, "ProsodyLabeling"))
+    os.makedirs(os.path.join(root, "Wave"))
+    with open(os.path.join(root, "ProsodyLabeling", "000001-010000.txt"), "w",
+              encoding="utf-8") as f:
+        for i, (key, text, pinyin) in enumerate(pairs):
+            f.write(f"{key}\t{text}\n\t{pinyin}\n")
+            wavfile.write(os.path.join(root, "Wave", f"{key}.wav"), sr,
+                          (_two_tone(sr, sr // 2, 220.0, 1700.0, i) * 32767).astype(np.int16))
+    return len(pairs) - 1  # 002365 is skipped by the recipe
+
+
+def phase_tools(dev, train_out: dict, embedder) -> dict:
+    from scipy.io import wavfile
+
+    from emotivoice_tpu_torch.tools import (
+        prepare_databaker,
+        prepare_ljspeech,
+        record_frontend_goldens,
+        verify_released_weights,
+    )
+    from emotivoice_tpu_torch.utils import native
+
+    backend = native.backend()
+    log(f"[tools] native codec: {backend} (built into {native.BUILD_DIR})")
+    if backend != "native":
+        fail("[tools] the native codec was not built on the card's machine")
+    ckpt, tmp = train_out["ckpt_dir"], tempfile.mkdtemp(prefix="chip_smoke_tools_")
+    try:
+        style = os.path.join(tmp, "style_encoder")
+        torch.save({"model": {k: v.cpu() for k, v in embedder.model.state_dict().items()}}, style)
+        texts = os.path.join(tmp, "texts")
+        with open(texts, "w", encoding="utf-8") as f:
+            for i, ph in enumerate(("a s e sp i f o", "u x a sp e", "o f i s u sp a e x",
+                                    "i e a")):
+                f.write(f"{i}|Happy|<sos/eos> {ph} <sos/eos>|utterance {i}\n")
+        step = f"{TRAIN_RESUMED_TO:08d}"
+        with PathWatch() as w:
+            rep = verify_released_weights.main([
+                "--generator", os.path.join(ckpt, f"g_{step}"),
+                "--discriminator", os.path.join(ckpt, f"do_{step}"),
+                "--style-encoder", style, "--texts", texts,
+                "--tokenlist", os.path.join(ckpt, "tokenlist"),
+                "--out-dir", os.path.join(tmp, "released")])
+        gates = rep["gates"]
+        log(f"[tools] verify_released_weights on [train]'s step-{TRAIN_RESUMED_TO} checkpoints and "
+            f"[style]'s encoder: gates {gates}; {len(rep['utterances'])} utterances, frames "
+            f"{[u['n_frames'] for u in rep['utterances']]}; launches {w.launches} over {w.calls} "
+            f"generator calls")
+        if (any(gates[g] != "ok" for g in ("convert_generator", "convert_style_encoder",
+                                            "convert_discriminator", "port_synthesis"))
+                or not gates["reference_model"].startswith("not run") or rep["pass"]):
+            fail(f"[tools] verify_released_weights: {gates}")
+        path = w.check(dev, "verify")
+
+        recipes = {}
+        for name, tool, make, sr in (("ljspeech", prepare_ljspeech, _lj_corpus, 22050),
+                                     ("databaker", prepare_databaker, _databaker_corpus, 44100)):
+            corpus, out = os.path.join(tmp, f"{name}_corpus"), os.path.join(tmp, name)
+            n = make(corpus, sr)
+            got = tool.main(["--corpus", corpus, "--output", out])
+            wav_dir = os.path.join(out, "wavs_16k" if name == "ljspeech" else "wavs")
+            wavs = [wavfile.read(os.path.join(wav_dir, f)) for f in os.listdir(wav_dir)]
+            rates, sizes = sorted({r for r, _ in wavs}), sorted({len(x) for _, x in wavs})
+            log(f"[tools] prepare_{name} on {n} utterances of 0.5 s at {sr} Hz: {got}; wavs at "
+                f"{rates} Hz, {sizes} samples each")
+            if (got != {"utterances": n, "resampled": n, "resample_backend": "native"}
+                    or rates != [16000] or sizes != [8000]):
+                fail(f"[tools] prepare_{name}: {got}")
+            recipes[name] = got
+        goldens = record_frontend_goldens.main(["--check"])
+        log(f"[tools] record_frontend_goldens --check: {goldens}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        shutil.rmtree(ckpt, ignore_errors=True)
+    report["tools"] = dict(native=backend, verify=rep, recipes=recipes, goldens=goldens)
+    return dict(launches=w.launches, path=path)
+
+
 def found_encoder() -> bool:
     return importlib.util.find_spec("pydub") is not None or shutil.which("ffmpeg") is not None
 
@@ -2125,10 +2540,15 @@ def main() -> None:
     curves_out = phase_train_curves(dev)
     dp_train_out = phase_dp_train(dev)
     phase_style_pretrain(dev)
+    phase_fallback(dev)
+    corpus_out = phase_corpus(dev)
+    sweep_out = phase_sweep(dev)
+    tools_out = phase_tools(dev, train_out, embedder)
 
     kernels = []
     paths = [main_out["path"], serve_out["path"], train_out["path"], dp_serve_out["path"],
-             curves_out["paths"]["f32"], curves_out["paths"]["bf16"]]
+             curves_out["paths"]["f32"], curves_out["paths"]["bf16"], corpus_out["path"],
+             sweep_out["path"], tools_out["path"]]
     src = {"fused_residual_unit": ("emotivoice_tpu_torch/csrc/resblock.cu",
                                    "emotivoice_tpu/ops/pallas/resblock.py:124"),
            "fused_mrf_stage": ("emotivoice_tpu_torch/csrc/mrf_stage.cu",
@@ -2146,6 +2566,9 @@ def main() -> None:
             launches_dp_train_steps=dp_train_out["launches_steps"][name],
             launches_train_curve_validation_f32=curves_out["launches"]["f32"][name],
             launches_train_curve_validation_bf16=curves_out["launches"]["bf16"][name],
+            launches_corpus=corpus_out["launches"][name],
+            launches_sweep=sweep_out["launches"][name],
+            launches_verify_released_weights=tools_out["launches"][name],
             max_abs_err=max(kern["worst"][name], *(p["worst"][name] for p in paths)),
             path_shapes_checked=sum(p["shapes"][name] for p in paths),
             ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
@@ -2160,11 +2583,14 @@ def main() -> None:
             bound_cuda_cores_ms_f32=t32["bound_cuda_cores_ms"],
             x_cudnn_f32=t32["ms"] / t32["library_ms"], tflops_f32=t32["flop"] / t32["ms"] / 1e9,
             library_tf32_on_ms_f32=t32["library_tf32_ms"],
-            # f32 on both driven paths: worst |kernel - plain| / max |plain|
+            # f32 on every path driven in f32: worst |kernel - plain| / max |plain|
             max_rel_err_f32=max(t32["err"], main_out["path"]["worst_rel"][name],
                                 serve_out["path"]["worst_rel"][name],
                                 train_out["path"]["worst_rel"][name],
-                                curves_out["paths"]["f32"]["worst_rel"][name]),
+                                curves_out["paths"]["f32"]["worst_rel"][name],
+                                corpus_out["path_f32"]["worst_rel"][name],
+                                sweep_out["path_f32"]["worst_rel"][name],
+                                tools_out["path"]["worst_rel"][name]),
             # both dtypes (two replicas), bf16 (validation of the bf16 run)
             max_rel_err_dp_serve=dp_serve_out["path"]["worst_rel"][name],
             max_rel_err_train_bf16=curves_out["paths"]["bf16"]["worst_rel"][name],

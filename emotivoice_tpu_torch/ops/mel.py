@@ -1,7 +1,7 @@
-"""Mel filterbank and log-mel extraction (counterpart of
-`emotivoice_tpu/ops/mel.py`). The filterbank is a numpy copy of the JAX
-package's, which reproduces librosa's `filters.mel(htk=False,
-norm='slaney')`, the reference's mel basis.
+"""Mel filterbank, log-mel extraction and its approximate inverse
+(counterpart of `emotivoice_tpu/ops/mel.py`). The filterbank is a numpy
+copy of the JAX package's, which reproduces librosa's `filters.mel(htk=
+False, norm='slaney')`, the reference's mel basis.
 """
 
 from __future__ import annotations
@@ -83,3 +83,23 @@ def mel_spectrogram(
                          loss_mode=loss_mode)
     basis = torch.from_numpy(mel_filterbank(sr, n_fft, n_mels, fmin, fmax)).to(mag.device)
     return dynamic_range_compression(torch.matmul(basis, mag))
+
+
+@functools.lru_cache(maxsize=8)
+def _filterbank_pinv(sr: int, n_fft: int, n_mels: int, fmin: float, fmax: float) -> np.ndarray:
+    return np.linalg.pinv(mel_filterbank(sr, n_fft, n_mels, fmin, fmax))
+
+
+def mel_to_linear(
+    mel: torch.Tensor,
+    sr: int = 16000,
+    n_fft: int = 1024,
+    n_mels: int = 80,
+    fmin: float = 0.0,
+    fmax: float = 8000.0,
+) -> torch.Tensor:
+    """Log-mel (B, n_mels, T) -> linear magnitude (B, n_bins, T) through the
+    filterbank's pseudo-inverse (numpy), clamped at 0. With `griffin_lim`
+    it is the checkpoint-free fallback vocoder."""
+    pinv = torch.from_numpy(_filterbank_pinv(sr, n_fft, n_mels, fmin, fmax)).to(mel.device)
+    return torch.clamp(torch.matmul(pinv, torch.exp(mel.float())), min=0.0)

@@ -22,6 +22,15 @@ def config_and_vocab(cfg: EmotiVoiceConfig,
     return cfg.replace(am=cfg.am.__class__(**{**cfg.am.__dict__, "n_vocab": len(vocab)})), vocab
 
 
+def config_with_tables(cfg: EmotiVoiceConfig, generator_state: dict) -> EmotiVoiceConfig:
+    """`cfg` with the speaker and token table sizes of a generator state
+    dict (a checkpoint's tables are authoritative: a corpus-local run trains
+    fewer speakers and tokens than the 2014 / 502 defaults)."""
+    return cfg.replace(am=cfg.am.__class__(**{
+        **cfg.am.__dict__, "n_speaker": generator_state["am.spk_tokenizer.weight"].shape[0],
+        "n_vocab": generator_state["am.src_word_emb.weight"].shape[0]}))
+
+
 def build_generator(cfg: EmotiVoiceConfig, checkpoint: Optional[str] = None,
                     seed: int = 0) -> JETSGenerator:
     """A `JETSGenerator` from a reference ``g_*`` checkpoint, or in smoke

@@ -1,14 +1,22 @@
 """Waveform I/O for the port (counterpart of
 `emotivoice_tpu/utils/audio_io.py`: `read_wav`, `write_wav`,
-`trim_silence`, `wav_stream_header`, `pcm16_bytes`; scipy / numpy paths
-only, the native codec is not ported yet)."""
+`trim_silence`, `resample`, `wav_stream_header`, `pcm16_bytes`).
+
+Decode, encode, trim and resample run in the port's native C++ codec
+(`utils/native.py`) when it can be built, else in scipy / numpy;
+`native.backend()` says which. The native calls take a path: a file object
+(`io.BytesIO`, as the HTTP service writes) always takes the scipy path.
+"""
 
 from __future__ import annotations
 
 import struct
+from math import gcd
 
 import numpy as np
 from scipy.io import wavfile
+
+from emotivoice_tpu_torch.utils import native
 
 MAX_WAV_VALUE = 32768.0
 
@@ -20,6 +28,10 @@ def _int16(wav: np.ndarray) -> np.ndarray:
 
 def read_wav(path) -> tuple:
     """Returns (sample_rate, float32 waveform in [-1, 1]), channels averaged."""
+    if isinstance(path, str):
+        got = native.read_wav(path)
+        if got is not None:
+            return got
     sr, data = wavfile.read(path)
     if data.dtype == np.int16:
         data = data.astype(np.float32) / MAX_WAV_VALUE
@@ -39,6 +51,9 @@ def trim_silence(wav: np.ndarray, sr: int, threshold: float = 0.005,
     """Cut what lies outside the first and last sample above `threshold` x
     peak, keeping `pad_ms` on each side (reference prompt_dataset.py:39-46:
     0.5% of peak, 50 ms)."""
+    trimmed = native.trim_silence(wav, sr, threshold, pad_ms)
+    if trimmed is not None:
+        return trimmed
     peak = np.abs(wav).max() if len(wav) else 0.0
     if peak <= 0:
         return wav
@@ -52,7 +67,26 @@ def trim_silence(wav: np.ndarray, sr: int, threshold: float = 0.005,
 def write_wav(path, wav: np.ndarray, sr: int = 16000):
     """Write a float waveform in [-1, 1] as int16 to a path or a binary
     file object (e.g. `io.BytesIO`)."""
+    if isinstance(path, str) and native.write_wav(path, wav, sr):
+        return
     wavfile.write(path, sr, _int16(wav))
+
+
+def resample(wav: np.ndarray, sr_in: int, sr_out: int) -> np.ndarray:
+    """float32 waveform at sr_in -> sr_out: the native windowed-sinc
+    resampler, or scipy's polyphase `resample_poly` without the library (two
+    close but different functions). The corpus recipes resample to 16 kHz
+    with it (the reference uses librosa, e.g.
+    data/LJspeech/src/step1_clean_raw_data.py:44-48)."""
+    if sr_in == sr_out:
+        return np.asarray(wav, np.float32)
+    out = native.resample(wav, sr_in, sr_out)
+    if out is not None:
+        return out
+    from scipy.signal import resample_poly
+
+    g = gcd(sr_out, sr_in)
+    return resample_poly(np.asarray(wav, np.float32), sr_out // g, sr_in // g).astype(np.float32)
 
 
 def wav_stream_header(sr: int = 16000, channels: int = 1, bits: int = 16) -> bytes:

@@ -19,6 +19,10 @@ TRAINING_SLICE = {f"emotivoice_tpu_torch.{m}" for m in (
 PARALLEL_SLICE = {f"emotivoice_tpu_torch.{m}" for m in (
     "parallel", "parallel.multihost", "parallel.data_parallel", "training.style_pretrain",
     "serve", "serving.engine")}
+TOOLS_SLICE = {f"emotivoice_tpu_torch.{m}" for m in (
+    "utils.native", "utils.audio_io", "tools", "tools.synthesize_corpus", "tools.sweep_voices",
+    "tools.verify_released_weights", "tools.prepare_ljspeech", "tools.prepare_databaker",
+    "tools.record_frontend_goldens")}
 PKG = os.path.join(ROOT, "emotivoice_tpu_torch")
 
 
@@ -47,6 +51,7 @@ def test_every_port_module_imports_without_jax():
     assert len(names) >= 60 and leaked == "[]"
     assert TRAINING_SLICE <= names, sorted(TRAINING_SLICE - names)
     assert PARALLEL_SLICE <= names, sorted(PARALLEL_SLICE - names)
+    assert TOOLS_SLICE <= names, sorted(TOOLS_SLICE - names)
 
 
 def test_no_source_line_imports_jax_or_the_jax_package():
