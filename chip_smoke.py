@@ -76,6 +76,18 @@ Phases (any failure exits non-zero and prints no result line):
                 equal, waveforms within 2e-3 x max, 18 + 2 launches per
                 replica call, both kernels held against their plain
                 versions at each replica's shapes;
+  9b. tp_serve - a SynthesisEngine whose one replica is split over the
+                model group [cuda:0, cuda:0] ([cuda:0, cuda:1] where the
+                machine has two cards; model_parallel=2: vocoder
+                channels, attention heads, FFN; the MRF kernels on whole
+                weights gathered each call) against the one-device engine
+                at the bench bucket, f32 then bf16: durations (bf16: equal
+                on some rows, a row's frames within 2%), waveforms within
+                2e-3 / 5e-2 x max on the rows whose durations agree and
+                through the TP vocoder on the one-device mel, 18 + 2
+                launches per generator
+                call, ms per call in turns, parameter bytes per shard, both
+                kernels held against their plain versions at its shapes;
   10. dp_train - two ranks (this script with --dp-worker, the torchrun
                 environment, gloo, both on cuda:0) against one process:
                 one step on one global batch of 16 rows (every loss and the
@@ -85,6 +97,14 @@ Phases (any failure exits non-zero and prints no result line):
                 and a checkpoint: steps/s, gradient all-reduce ms per step,
                 peak memory per rank, 0 kernel launches in the steps. Two
                 ranks on one card: no multi-GPU figure;
+  10b. tp_train - [train]'s config and corpus at batch 16, f32: a TrainStep
+                over models split on the same group against a one-device
+                TrainStep from the same seeded state (one step: every loss
+                and the 11 gradient norms to [train]'s tolerances), 5 more
+                steps of each (median wall ms, peak memory, 0 kernel
+                launches), the TP checkpoint restored bit-equal into a
+                one-device trainer. Both shards on one card show no
+                scaling;
   11. style_pretrain - the full-width style encoder: one PretrainStep card
                 vs CPU (dropout off), then `pretrain` for 5 steps at batch
                 16 (dropout on): ms per step;
@@ -162,6 +182,7 @@ TOL_CPU = 2e-3  # whole path, card vs CPU, / max |wav|
 # differently (1.7e-2 of max at the bench bucket on an H100); the replicas are held at
 # TOL_CPU against one replica on the same 8-row halves
 TOL_DP_BF16 = 5e-2
+TP_BF16_FRAMES = 0.02  # bf16 TP(2) vs one device: a row's frames may differ by this share (+1)
 REPLAY_MAX_FRAMES = 6144  # batch x mel frames of a served call replayed on the CPU
 TRAIN_B, TRAIN_STEPS, TRAIN_CKPT, TRAIN_RESUMED_TO = 16, 30, 20, 36
 TOL_TRAIN_LOSS = 2e-3  # one train step, card vs CPU: each loss, relative
@@ -1776,6 +1797,169 @@ def phase_dp_serve(dev, cfg, vocab, model) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# 9b. tensor-parallel serving: one replica split over [card, card]
+# ---------------------------------------------------------------------------
+
+def shard_bytes(module) -> dict:
+    """Parameter bytes of a (possibly tensor-parallel) module: the parts of
+    the split parameters per shard index, the whole ones (on the group's
+    first device), and all of them."""
+    from emotivoice_tpu_torch.parallel.tensor_parallel import full_parameters
+
+    per_shard, whole = {}, 0
+    for _, parts, dim in full_parameters(module):
+        if dim is None:
+            whole += parts[0].numel() * parts[0].element_size()
+            continue
+        for i, p in enumerate(parts):
+            per_shard[i] = per_shard.get(i, 0) + p.numel() * p.element_size()
+    return dict(per_shard=[per_shard[i] for i in sorted(per_shard)], whole=whole,
+                total=whole + sum(per_shard.values()))
+
+
+def tp_group(dev) -> list:
+    """The model group of the TP phases: two cards where the machine has
+    them, else two shards on `dev`. On one card the collectives cost
+    nothing, so the phases show correctness and the launch cost of the
+    split, not its scaling."""
+    if dev.type == "cuda" and torch.cuda.device_count() >= 2:
+        return [torch.device("cuda", 0), torch.device("cuda", 1)]
+    return [dev, dev]
+
+
+def _group_str(group) -> str:
+    return "[" + ", ".join(str(d) for d in group) + "]"
+
+
+def _group_note(group) -> str:
+    if group[0] == group[1]:
+        return "two shards on one card, so no scaling figure"
+    return f"on two cards {_group_str(group)}"
+
+
+def phase_tp_serve(dev, cfg, vocab, model) -> dict:
+    """A SynthesisEngine whose one replica is split over the model group
+    `tp_group(dev)` (model_parallel=2) against the one-device engine on the same
+    seeded weights, at the bench bucket, f32 (TF32 off) then bf16: equal
+    durations (in bf16 on some rows, a row's frames within TP_BF16_FRAMES),
+    waveforms within TOL_CPU (f32) / TOL_DP_BF16 (bf16) x max on the rows
+    whose durations agree and through the TP vocoder on the one-device mel,
+    18 + 2 launches per generator call (the MRF kernels run on whole
+    weights gathered to the group's first device), ms per call (median of
+    3, the two engines in turns), parameter bytes per shard, both kernels
+    held against their plain versions at the path's shapes."""
+    import copy
+
+    from emotivoice_tpu_torch.ops.cuda.mrf_stage import fused_mrf_stage
+    from emotivoice_tpu_torch.ops.cuda.resblock import fused_residual_unit
+    from emotivoice_tpu_torch.serving.engine import SynthesisEngine
+
+    rng = np.random.RandomState(SEED + 8)
+    d = cfg.am.bert_embedding
+    lengths = rng.randint(BENCH_T_TEXT // 2, BENCH_T_TEXT + 1, BENCH_B)
+    toks = rng.randint(2, len(vocab), (BENCH_B, BENCH_T_TEXT))
+    args = (toks, lengths, rng.randint(0, cfg.am.n_speaker, BENCH_B),
+            rng.randn(BENCH_B, d).astype(np.float32), rng.randn(BENCH_B, d).astype(np.float32))
+    audio_s = BENCH_B * BENCH_FRAMES * cfg.audio.hop_length / cfg.audio.sampling_rate
+    out, shapes = {}, set()
+    launches_total = {"fused_residual_unit": 0, "fused_mrf_stage": 0}
+    bytes_one = shard_bytes(model)["total"]
+    group = tp_group(dev)
+    for dname in ("f32", "bf16"):
+        one = SynthesisEngine(cfg, model, vocab, device=dev, dtype=dname)
+        tp = SynthesisEngine(cfg, copy.deepcopy(model), vocab, devices=group,
+                             model_parallel=2, dtype=dname)
+        if type(tp.model.generator.conv_post).__name__ != "RowParallel":
+            fail(f"[tp_serve] the engine did not split the model: {tp.model.generator.conv_post}")
+        _, n1 = one.run(*args, BENCH_FRAMES, 1.0)
+        recorded, hooks = watch_stage_shapes(tp.model)
+        fused_residual_unit.launches = 0
+        fused_mrf_stage.launches = 0
+        try:
+            _, n2 = tp.run(*args, BENCH_FRAMES, 1.0)
+            torch.cuda.synchronize()
+        finally:
+            for h in hooks:
+                h.remove()
+        launches = {"fused_residual_unit": fused_residual_unit.launches,
+                    "fused_mrf_stage": fused_mrf_stage.launches}
+        for k in launches_total:
+            launches_total[k] += launches[k]
+        shapes |= recorded
+        per_call = launches_per_call(cfg.vocoder)
+        if tuple(launches.values()) != per_call:
+            fail(f"[tp_serve] {dname}: launches {launches} != {per_call} per generator call")
+        # The same inputs through both models, for durations per token and the
+        # vocoder alone on the one-device mel. bf16 rounds each shard's partial
+        # sum before the reduction (as XLA's bf16 all-reduce under a model axis
+        # does), one rounding more than one device, so a predicted duration near
+        # a rounding edge may move by a frame and shift the rest of its row: in
+        # bf16 the whole path is held on the rows whose durations all agree, the
+        # vocoder on every row, and a row's frames may differ by TP_BF16_FRAMES
+        # (+1).
+        dtype = torch.float32 if dname == "f32" else torch.bfloat16
+        inputs = [torch.as_tensor(a, device=dev) for a in args]
+        with torch.inference_mode():
+            o1 = one.model(*inputs, max_frames=BENCH_FRAMES, dtype=dtype)
+            o2 = tp.model(*inputs, max_frames=BENCH_FRAMES, dtype=dtype)
+            voc = tp.model.generator(o1["dec_outputs"], dtype=dtype)
+        torch.cuda.synchronize()
+        same = (o1["durations"] == o2["durations"]).all(dim=1).cpu().numpy()
+        off = np.abs(n2.astype(np.int64) - n1)
+        w1, w2 = o1["wav_predictions"].cpu().numpy(), o2["wav_predictions"].cpu().numpy()
+        if dname == "f32" and not (same.all() and np.array_equal(n1, n2)):
+            fail(f"[tp_serve] {dname}: durations differ: {n2} vs {n1}")
+        if not same.any() or np.any(off > 1 + TP_BF16_FRAMES * n1):
+            fail(f"[tp_serve] {dname}: durations differ beyond rounding: {n2} vs {n1}, "
+                 f"{int(same.sum())} rows with equal durations")
+        scale = float(np.abs(w1).max())
+        err = float(np.abs(w2[same] - w1[same]).max())
+        err_voc = float(np.abs(voc.float().cpu().numpy() - w1).max())
+        tol = TOL_CPU if dname == "f32" else TOL_DP_BF16
+        if (not np.all(np.isfinite(w2)) or scale < 1e-3 or err > tol * scale
+                or err_voc > tol * scale):
+            fail(f"[tp_serve] {dname}: TP(2) vs one device: max err {err:.3g} (rows with equal "
+                 f"durations), {err_voc:.3g} (the vocoder on one mel) > {tol} x max {scale:.3g}")
+        runs = {"one": [], "tp": []}
+        for _ in range(3):
+            for name, eng in (("one", one), ("tp", tp)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                eng.run(*args, BENCH_FRAMES, 1.0)
+                torch.cuda.synchronize()
+                runs[name].append((time.perf_counter() - t0) * 1e3)
+        one_ms, tp_ms = float(np.median(runs["one"])), float(np.median(runs["tp"]))
+        sb = shard_bytes(tp.model)
+        out[dname] = dict(err=err, scale=scale, launches=launches, one_ms=one_ms, tp_ms=tp_ms,
+                          err_vocoder=err_voc, rows_same_durations=int(same.sum()),
+                          frames_off=off.tolist(),
+                          runs_ms=runs, xrt_one=audio_s * 1e3 / one_ms,
+                          xrt_tp=audio_s * 1e3 / tp_ms, bytes_per_shard=sb["per_shard"],
+                          bytes_whole=sb["whole"], bytes_tp_total=sb["total"],
+                          bytes_one=bytes_one)
+        mib = 2 ** 20
+        log(f"[tp_serve] {dname}, bench bucket B={BENCH_B} x {BENCH_T_TEXT} tokens x "
+            f"{BENCH_FRAMES} frames, one replica over the model group {_group_str(group)}: "
+            f"durations "
+            f"equal on {int(same.sum())} of {BENCH_B} rows (frames off by "
+            f"{sorted(int(o) for o in off[~same])} on the others); max |TP(2) - one device| "
+            f"{err:.2e} on those rows, the TP vocoder on the one-device mel {err_voc:.2e} "
+            f"(tol {tol} x max), max |wav| "
+            f"{scale:.3f}; launches {launches} in one generator call; {tp_ms:.1f} ms TP(2) vs "
+            f"{one_ms:.1f} ms one device (median of 3, in turns; xRT {audio_s * 1e3 / tp_ms:.1f}"
+            f" vs {audio_s * 1e3 / one_ms:.1f}); parameter MiB per shard "
+            + " / ".join(f"{b / mib:.2f}" for b in sb["per_shard"])
+            + f" + {sb['whole'] / mib:.2f} whole on the first device = "
+            f"{sb['total'] / mib:.2f} (one device {bytes_one / mib:.2f}); {_group_note(group)}")
+        tp_model = tp.model
+        del one, tp
+    # the kernels against their plain versions on the split model's gathered weights
+    path = check_path_kernels(dev, tp_model, shapes, "tp_serve")
+    report["tp_serve"] = out
+    return dict(launches=launches_total, path=path)
+
+
+# ---------------------------------------------------------------------------
 # 10. data-parallel training: two ranks on the one card over gloo
 # ---------------------------------------------------------------------------
 
@@ -2026,6 +2210,137 @@ def phase_dp_train(dev) -> dict:
                   uv_equal=uv_equal, uv_err=uv_err, one_s=one_s, ranks_s=ranks_s),
         cli=dict(steps=DP_CLI_STEPS, wall_s=cli_s, log=rows, ranks=cli, reduce_ms=reduce_ms,
                  steps_per_s=sps, peak_bytes=peaks, launches=launches))
+    return dict(launches_steps=launches)
+
+
+# ---------------------------------------------------------------------------
+# 10b. tensor-parallel training: one process, the models split over [card, card]
+# ---------------------------------------------------------------------------
+
+TP_STEPS = 5
+
+
+def whole_grad_norms(model, disc, names) -> dict:
+    """The gradient norm of each named parameter, a split parameter's parts
+    gathered (the one-device and the tensor-parallel layouts alike)."""
+    from emotivoice_tpu_torch.parallel.tensor_parallel import full_parameters
+
+    found = {}
+    for module in (model, disc):
+        for name, parts, dim in full_parameters(module):
+            if name in names:
+                g = parts[0].grad if dim is None else torch.cat([p.grad.to(parts[0].device)
+                                                                 for p in parts], dim)
+                found[name] = float(g.norm())
+    return {k: found[k] for k in names}
+
+
+def phase_tp_train(dev) -> dict:
+    """`[train]`'s config and corpus at batch 16, f32 (TF32 off): a
+    TrainStep over models split on the model group `tp_group(dev)` against a
+    one-device TrainStep from the same seeded state, dropout off: one step
+    (every loss and the 11 gradient norms to [train]'s tolerances), then
+    TP_STEPS more steps of each (median wall ms, peak memory, 0 kernel
+    launches), then the TP trainer's checkpoint restored into a fresh
+    one-device trainer: parameters and Adam moments bit-equal."""
+    from emotivoice_tpu_torch.data.synthetic_corpus import main as make_corpus
+    from emotivoice_tpu_torch.ops.cuda.mrf_stage import fused_mrf_stage
+    from emotivoice_tpu_torch.ops.cuda.resblock import fused_residual_unit
+    from emotivoice_tpu_torch.parallel.tensor_parallel import tensor_parallel
+    from emotivoice_tpu_torch.training.loop import CheckpointManager, build_models
+    from emotivoice_tpu_torch.training.step import TrainStep
+
+    def trainer(cfg, group):
+        model, disc = build_models(cfg, dev)
+        model.eval()
+        disc.eval()
+        return TrainStep(cfg, tensor_parallel(model, group), tensor_parallel(disc, group))
+
+    group = tp_group(dev)
+    cards = sorted(set(group), key=str)
+
+    def steps(tr, batch, n):
+        """n steps: the last metrics, wall ms per step, and the peak memory
+        above what was allocated before them (both trainers' state), summed
+        over the group's cards."""
+        resident = 0
+        for d in cards:
+            torch.cuda.synchronize(d)
+            torch.cuda.reset_peak_memory_stats(d)
+            resident += torch.cuda.memory_allocated(d)
+        ms = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            metrics = tr(batch)
+            for d in cards:
+                torch.cuda.synchronize(d)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        return metrics, ms, sum(torch.cuda.max_memory_allocated(d) for d in cards) - resident
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tp_")
+    try:
+        corpus, cache = os.path.join(tmp, "corpus"), os.path.join(tmp, "cache")
+        make_corpus(["--out", corpus, "--n-train", "64", "--n-valid", "8", "--n-speakers", "4",
+                     "--seed", str(SEED)])
+        cfg, _, batch = _dp_setup(corpus, cache, dev)
+        one, tp = trainer(cfg, [dev]), trainer(cfg, group)
+        if type(tp.model.generator.conv_post).__name__ != "RowParallel":
+            fail("[tp_train] the trainer's generator is not split")
+        fused_residual_unit.launches = 0
+        fused_mrf_stage.launches = 0
+        got = {}
+        for name, tr in (("one", one), ("tp", tp)):
+            metrics, ms, _ = steps(tr, batch, 1)
+            got[name] = dict(metrics={k: float(v) for k, v in metrics.items()},
+                             grads=whole_grad_norms(tr.model, tr.disc, TRAIN_GRAD_PARAMS),
+                             first_ms=ms[0])
+        loss_err = {k: abs(got["tp"]["metrics"][k] - v) / max(abs(v), 1e-12)
+                    for k, v in got["one"]["metrics"].items()}
+        grad_err = {k: abs(got["tp"]["grads"][k] - v) / max(abs(v), 1e-12)
+                    for k, v in got["one"]["grads"].items()}
+        worst_loss = max(loss_err.items(), key=lambda kv: kv[1])
+        worst_grad = max(grad_err.items(), key=lambda kv: kv[1])
+        timing = {}
+        for name, tr in (("one", one), ("tp", tp)):
+            _, ms, peak = steps(tr, batch, TP_STEPS)
+            timing[name] = dict(ms=ms, median_ms=float(np.median(ms)), peak_bytes=peak)
+        launches = {"fused_residual_unit": fused_residual_unit.launches,
+                    "fused_mrf_stage": fused_mrf_stage.launches}
+        ckpt = CheckpointManager(os.path.join(tmp, "ckpt"))
+        ckpt.save(tp)
+        back = trainer(cfg, [dev])
+        restored = ckpt.restore(back)
+        same = all(torch.equal(a, b) for m, n in ((tp.model, back.model), (tp.disc, back.disc))
+                   for a, b in zip(m.state_dict().values(), n.state_dict().values()))
+        adam = [tp.state_dict()[k]["state"] for k in ("optim_g", "optim_d")]
+        adam_back = [back.state_dict()[k]["state"] for k in ("optim_g", "optim_d")]
+        same_adam = all(torch.equal(a[i][k], b[i][k]) for a, b in zip(adam, adam_back)
+                        for i in a for k in a[i])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    gib = 2 ** 30
+    log(f"[tp_train] one step, batch {DP_GLOBAL_B} x {int(batch['tokens'].shape[1])} tokens x "
+        f"{int(batch['mel'].shape[1])} frames, f32, dropout off: models split over "
+        f"{_group_str(group)}"
+        f" vs one device from the same seeded state: worst loss rel err {worst_loss[1]:.2e} "
+        f"({worst_loss[0]}; tol {TOL_TRAIN_LOSS}), worst grad-norm rel err {worst_grad[1]:.2e} "
+        f"({worst_grad[0]}; tol {TOL_TRAIN_GRAD}) over {len(TRAIN_GRAD_PARAMS)} parameters; "
+        f"{TP_STEPS} more steps each: {timing['tp']['median_ms']:.1f} ms TP(2) vs "
+        f"{timing['one']['median_ms']:.1f} ms one device (median wall ms), peak memory above "
+        f"both trainers' resident state {timing['tp']['peak_bytes'] / gib:.2f} vs "
+        f"{timing['one']['peak_bytes'] / gib:.2f} GiB; "
+        f"kernel launches in the steps {launches}; the TP checkpoint of step {restored} in a "
+        f"one-device trainer: parameters bit-equal {same}, Adam moments bit-equal {same_adam}; "
+        f"{_group_note(group)}")
+    if not (worst_loss[1] <= TOL_TRAIN_LOSS and worst_grad[1] <= TOL_TRAIN_GRAD):
+        fail(f"[tp_train] TP and one device disagree: {loss_err} {grad_err}")
+    if any(launches.values()):
+        fail(f"[tp_train] the train steps launched kernels: {launches}")
+    if not (same and same_adam and restored == 1 + TP_STEPS):
+        fail(f"[tp_train] the TP checkpoint did not load bit-equal into one device: "
+             f"step {restored}, parameters {same}, Adam {same_adam}")
+    report["tp_train"] = dict(step=dict(got, loss_rel_err=loss_err, grad_rel_err=grad_err),
+                              timing=timing, launches=launches, checkpoint_step=restored)
     return dict(launches_steps=launches)
 
 
@@ -2536,9 +2851,11 @@ def main() -> None:
     embedder = phase_style(dev, args.profile)
     serve_out = phase_serve(dev, cfg, vocab, model, embedder, cpu_model, args.profile)
     dp_serve_out = phase_dp_serve(dev, cfg, vocab, model)
+    tp_serve_out = phase_tp_serve(dev, cfg, vocab, model)
     train_out = phase_train(dev, args.profile)
     curves_out = phase_train_curves(dev)
     dp_train_out = phase_dp_train(dev)
+    tp_train_out = phase_tp_train(dev)
     phase_style_pretrain(dev)
     phase_fallback(dev)
     corpus_out = phase_corpus(dev)
@@ -2547,6 +2864,7 @@ def main() -> None:
 
     kernels = []
     paths = [main_out["path"], serve_out["path"], train_out["path"], dp_serve_out["path"],
+             tp_serve_out["path"],
              curves_out["paths"]["f32"], curves_out["paths"]["bf16"], corpus_out["path"],
              sweep_out["path"], tools_out["path"]]
     src = {"fused_residual_unit": ("emotivoice_tpu_torch/csrc/resblock.cu",
@@ -2564,6 +2882,8 @@ def main() -> None:
             launches_train_validation=train_out["launches"][name],
             launches_dp_serve=dp_serve_out["launches"][name],
             launches_dp_train_steps=dp_train_out["launches_steps"][name],
+            launches_tp_serve=tp_serve_out["launches"][name],
+            launches_tp_train_steps=tp_train_out["launches_steps"][name],
             launches_train_curve_validation_f32=curves_out["launches"]["f32"][name],
             launches_train_curve_validation_bf16=curves_out["launches"]["bf16"][name],
             launches_corpus=corpus_out["launches"][name],
@@ -2593,6 +2913,7 @@ def main() -> None:
                                 tools_out["path"]["worst_rel"][name]),
             # both dtypes (two replicas), bf16 (validation of the bf16 run)
             max_rel_err_dp_serve=dp_serve_out["path"]["worst_rel"][name],
+            max_rel_err_tp_serve=tp_serve_out["path"]["worst_rel"][name],
             max_rel_err_train_bf16=curves_out["paths"]["bf16"]["worst_rel"][name],
         ))
     report["kernels"] = kernels

@@ -28,12 +28,15 @@ from torch import nn
 
 from emotivoice_tpu_torch.config import DiscriminatorConfig
 from emotivoice_tpu_torch.models.hifigan import LRELU_SLOPE, WeightNorm
+from emotivoice_tpu_torch.parallel.tensor_parallel import conv2d
 
 Conv1dSpec = Tuple[int, int, int, int, int]  # (out_ch, kernel, stride, groups, pad)
 
 
 class WNConv2d(WeightNorm):
     """Weight-normalised Conv2d over (B, C, H, W)."""
+
+    channel_dim = 1  # of the activations
 
     def __init__(self, c_in: int, c_out: int, kernel_size: Tuple[int, int],
                  stride: Tuple[int, int] = (1, 1), padding: Tuple[int, int] = (0, 0)):
@@ -43,6 +46,10 @@ class WNConv2d(WeightNorm):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.conv2d(x, self.folded().to(x.dtype), self.bias.to(x.dtype), self.stride,
                         self.padding)
+
+    def op(self):
+        """This layer's function of (input, weight, bias), for its parallel versions."""
+        return conv2d(self.stride, self.padding)
 
 
 class WNConvNCW(WeightNorm):

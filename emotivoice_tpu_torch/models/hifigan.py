@@ -20,6 +20,10 @@ JAX package's training turns off with use_pallas / use_fused_stage), so the
 trainer builds the generator with `kernels=False`: every ResBlock1 conv is
 then a differentiable `WNConv1d`, the JAX package's default branch.
 Activations are feature-last (B, T, C).
+
+Over a model group (`parallel/tensor_parallel.py`) conv_pre and the
+transposed convs become column-parallel layers, conv_post row-parallel and
+each ResBlock1 a `ParallelResBlock1`; the generator's forward is the same.
 """
 
 from __future__ import annotations
@@ -33,6 +37,13 @@ from torch import nn
 from emotivoice_tpu_torch.config import VocoderConfig
 from emotivoice_tpu_torch.ops.cuda.mrf_stage import fused_mrf_stage
 from emotivoice_tpu_torch.ops.cuda.resblock import fused_residual_unit, lrelu
+from emotivoice_tpu_torch.parallel.tensor_parallel import (
+    ColumnParallel,
+    RowParallel,
+    broadcast,
+    conv1d,
+    conv_transpose1d,
+)
 
 LRELU_SLOPE = 0.1
 FUSED_UNIT_MIN_CHANNELS = 128  # C at or above: per-unit kernel; below: whole stage
@@ -76,10 +87,16 @@ class WNConv1d(WeightNorm):
                      padding=self.padding, dilation=self.dilation)
         return y.transpose(1, 2) + self.bias.to(x.dtype)
 
+    def op(self):
+        """This layer's function of (input, weight, bias), for its parallel versions."""
+        return conv1d(self.padding, self.dilation)
+
 
 class WNConvTranspose1d(WeightNorm):
     """Weight-normalised ConvTranspose1d over (B, T, C), torch semantics:
     out_len = (T-1)*stride - 2*padding + kernel_size."""
+
+    out_dim = 1  # the weight's output-channel dim
 
     def __init__(self, c_in: int, c_out: int, kernel_size: int, stride: int,
                  padding: int):
@@ -91,6 +108,9 @@ class WNConvTranspose1d(WeightNorm):
         y = F.conv_transpose1d(x.transpose(1, 2), self.folded().to(x.dtype),
                                stride=self.stride, padding=self.padding)
         return y.transpose(1, 2) + self.bias.to(x.dtype)
+
+    def op(self):
+        return conv_transpose1d(self.stride, self.padding)
 
 
 class ResBlock1(nn.Module):
@@ -125,6 +145,38 @@ class ResBlock1(nn.Module):
         x = x.contiguous()
         for d, (w1, b1, w2, b2) in zip(self.dilations, self.unit_weights(x.dtype)):
             x = fused_residual_unit(x, w1, b1, w2, b2, self.kernel_size, d)
+        return x
+
+
+class ParallelResBlock1(ResBlock1):
+    """ResBlock1 over a model group (`parallel/tensor_parallel.py`): convs1
+    column-parallel, convs2 row-parallel, parameters split at rest. With
+    `kernels=False` (training) each unit runs both halves on the shards and
+    reduces once, before the residual add. With `kernels=True` (serving)
+    the folded unit weights are gathered whole to `devices[0]` on every call
+    and the MRF kernels run there on whole weights, as the JAX package's
+    `pallas_call` does under a model axis."""
+
+    def __init__(self, block: ResBlock1, devices):
+        nn.Module.__init__(self)
+        self.kernel_size, self.dilations = block.kernel_size, block.dilations
+        self.devices = list(devices)
+        self.convs1 = nn.ModuleList(ColumnParallel(c, self.devices) for c in block.convs1)
+        self.convs2 = nn.ModuleList(RowParallel(c, self.devices) for c in block.convs2)
+
+    def unit_weights(self, dtype: torch.dtype):
+        return tuple(
+            (c1.folded_hio(dtype), c1.whole_bias(dtype), c2.folded_hio(dtype),
+             c2.whole_bias(dtype))
+            for c1, c2 in zip(self.convs1, self.convs2)
+        )
+
+    def forward(self, x: torch.Tensor, kernels: bool = True) -> torch.Tensor:
+        if kernels:
+            return super().forward(x, kernels)
+        for c1, c2 in zip(self.convs1, self.convs2):
+            hidden = c1.forward_shards(broadcast(lrelu(x), self.devices))
+            x = x + c2.forward_partials([lrelu(h) for h in hidden])
         return x
 
 

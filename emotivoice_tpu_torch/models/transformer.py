@@ -28,6 +28,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from emotivoice_tpu_torch.parallel.tensor_parallel import (
+    ColumnParallel,
+    RowParallel,
+    broadcast,
+    conv1d,
+)
 from emotivoice_tpu_torch.utils.masks import NEG_INF
 
 LN_EPS = 1e-12
@@ -39,6 +45,10 @@ class Linear(nn.Linear):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b = None if self.bias is None else self.bias.to(x.dtype)
         return F.linear(x, self.weight.to(x.dtype), b)
+
+    def op(self):
+        """This layer's function of (input, weight, bias), for its parallel versions."""
+        return F.linear
 
 
 class LayerNorm(nn.LayerNorm):
@@ -64,6 +74,9 @@ class Conv1dSame(nn.Conv1d):
         y = F.conv1d(x.transpose(1, 2), self.weight.to(x.dtype), None,
                      padding=self.padding, dilation=self.dilation)
         return y.transpose(1, 2) + self.bias.to(x.dtype)
+
+    def op(self):
+        return conv1d(self.padding, self.dilation)
 
 
 def sinusoid_table(max_len: int, d_model: int) -> np.ndarray:
@@ -100,41 +113,71 @@ class ScaledPositionalEncoding(nn.Module):
         return self.dropout(x + self.alpha.to(x.dtype) * pe[None, :t].to(x.dtype))
 
 
-class MultiHeadedAttention(nn.Module):
-    """Full (non-causal) attention, reference encoder.py:55-109.
+def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           valid_mask: Optional[torch.Tensor], n_heads: int, dropout: nn.Module) -> torch.Tensor:
+    """Attention of (B, T, n_heads * d_k) projections, back to that layout.
 
     Plain matmul + softmax, the same math as the JAX einsums: masked keys get
     NEG_INF before the softmax and exactly 0 after it."""
+    b, t, d = q.shape
+    d_k = d // n_heads
+
+    def split(h):  # (B, T, D) -> (B, H, T, d_k)
+        return h.view(b, t, n_heads, d_k).transpose(1, 2)
+
+    q, k, v = split(q), split(k), split(v)
+    scores = torch.matmul(q, k.transpose(-1, -2)).float() / math.sqrt(d_k)
+    if valid_mask is not None:
+        key_mask = valid_mask[:, None, None, :]
+        scores = scores.masked_fill(~key_mask, NEG_INF)
+    attn = torch.softmax(scores, dim=-1)
+    if valid_mask is not None:
+        attn = attn.masked_fill(~key_mask, 0.0)
+    out = torch.matmul(dropout(attn).to(v.dtype), v)
+    return out.transpose(1, 2).reshape(b, t, d)
+
+
+class MultiHeadedAttention(nn.Module):
+    """Full (non-causal) attention, reference encoder.py:55-109."""
 
     def __init__(self, n_heads: int, d_model: int, dropout: float = 0.0):
         super().__init__()
         self.n_heads = n_heads
         self.dropout = nn.Dropout(dropout)
-        self.d_k = d_model // n_heads
         self.linear_q = Linear(d_model, d_model)
         self.linear_k = Linear(d_model, d_model)
         self.linear_v = Linear(d_model, d_model)
         self.linear_out = Linear(d_model, d_model)
 
     def forward(self, x: torch.Tensor, valid_mask: Optional[torch.Tensor]) -> torch.Tensor:
-        b, t, d = x.shape
-
-        def split(h):  # (B, T, D) -> (B, H, T, d_k)
-            return h.view(b, t, self.n_heads, self.d_k).transpose(1, 2)
-
-        q = split(self.linear_q(x))
-        k = split(self.linear_k(x))
-        v = split(self.linear_v(x))
-        scores = torch.matmul(q, k.transpose(-1, -2)).float() / math.sqrt(self.d_k)
-        if valid_mask is not None:
-            key_mask = valid_mask[:, None, None, :]
-            scores = scores.masked_fill(~key_mask, NEG_INF)
-        attn = torch.softmax(scores, dim=-1)
-        if valid_mask is not None:
-            attn = attn.masked_fill(~key_mask, 0.0)
-        out = torch.matmul(self.dropout(attn).to(v.dtype), v)
-        out = out.transpose(1, 2).reshape(b, t, d)
+        out = attend(self.linear_q(x), self.linear_k(x), self.linear_v(x), valid_mask,
+                     self.n_heads, self.dropout)
         return self.linear_out(out)
+
+
+class HeadParallelAttention(nn.Module):
+    """MultiHeadedAttention over a model group (`parallel/tensor_parallel.py`):
+    shard i runs heads [i H/N, (i+1) H/N) with d_k unchanged (linear_q/k/v
+    column-parallel), and linear_out reduces the shards' partial sums.
+    Each shard draws its own dropout masks, so it equals the one-device
+    module only with dropout off (as the tests run it)."""
+
+    def __init__(self, attn: MultiHeadedAttention, devices):
+        super().__init__()
+        self.devices = list(devices)
+        self.n_heads = attn.n_heads // len(self.devices)  # per shard
+        self.dropout = attn.dropout
+        self.linear_q = ColumnParallel(attn.linear_q, self.devices)
+        self.linear_k = ColumnParallel(attn.linear_k, self.devices)
+        self.linear_v = ColumnParallel(attn.linear_v, self.devices)
+        self.linear_out = RowParallel(attn.linear_out, self.devices)
+
+    def forward(self, x: torch.Tensor, valid_mask: Optional[torch.Tensor]) -> torch.Tensor:
+        xs = broadcast(x, self.devices)
+        q, k, v = (lin.forward_shards(xs) for lin in (self.linear_q, self.linear_k, self.linear_v))
+        heads = [attend(*qkv, m, self.n_heads, self.dropout)
+                 for *qkv, m in zip(q, k, v, broadcast(valid_mask, self.devices))]
+        return self.linear_out.forward_partials(heads)
 
 
 class ConvFFN(nn.Module):
@@ -148,6 +191,23 @@ class ConvFFN(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.w_2(self.dropout(F.gelu(self.w_1(x), approximate="none")))
+
+
+class ParallelConvFFN(nn.Module):
+    """ConvFFN over a model group: w_1 column-parallel, w_2 row-parallel,
+    reduced once; GELU and dropout per shard (own masks, as above)."""
+
+    def __init__(self, ffn: ConvFFN, devices):
+        super().__init__()
+        self.devices = list(devices)
+        self.w_1 = ColumnParallel(ffn.w_1, self.devices)
+        self.w_2 = RowParallel(ffn.w_2, self.devices)
+        self.dropout = ffn.dropout
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        hidden = self.w_1.forward_shards(broadcast(x, self.devices))
+        return self.w_2.forward_partials(
+            [self.dropout(F.gelu(h, approximate="none")) for h in hidden])
 
 
 class EncoderLayer(nn.Module):

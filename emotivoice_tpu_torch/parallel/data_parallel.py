@@ -13,13 +13,21 @@ same lines.
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Iterable, Iterator, Optional, Sequence, Union
+from typing import Any, Callable, Dict, Iterable, Iterator, List, Optional, Sequence, Union
 
 import torch
 import torch.distributed as dist
 
 
 MAX_WIDTHS = 4  # padded sizes `agreed` can carry per step
+
+
+def _by_device(tensors: Iterable[torch.Tensor]) -> List[List[torch.Tensor]]:
+    """`tensors` grouped by device, groups in order of first appearance."""
+    groups: Dict[torch.device, List[torch.Tensor]] = {}
+    for t in tensors:
+        groups.setdefault(t.device, []).append(t)
+    return list(groups.values())
 
 
 class DataParallel:
@@ -66,20 +74,34 @@ class DataParallel:
             dist.all_reduce(t, op=dist.ReduceOp.SUM)
         return t
 
+    def _flat_collective(self, tensors: List[torch.Tensor], op, scale: float = 1.0) -> None:
+        """`op` (a collective, in place) on `tensors` flattened into one
+        buffer per device they lie on, in the order the devices first appear
+        (the same on every rank). Each buffer goes through the collective on
+        this rank's collective device: a tensor-parallel model's devices
+        differ from rank to rank, that device does not. Results are copied
+        back in place, divided by `scale`."""
+        for group in _by_device(tensors):
+            flat = torch.cat([t.reshape(-1).float() for t in group])
+            buf = flat.to(self.device)  # no copy where the group lies there already
+            op(buf)
+            if scale != 1.0:
+                buf /= scale
+            offset = 0
+            for t in group:
+                t.copy_(buf[offset:offset + t.numel()].view_as(t))
+                offset += t.numel()
+
     def mean_grads(self, params: Iterable[torch.nn.Parameter]) -> None:
         """Replace each parameter's gradient by its mean over the ranks: one
-        all-reduce of one flat buffer. Parameters without a gradient have
-        none on any rank (the ranks run the same graph) and are left so."""
+        all-reduce of one flat buffer per device the parameters lie on.
+        Parameters without a gradient have none on any rank (the ranks run
+        the same graph) and are left so."""
         if self.world == 1:
             return
         grads = [p.grad for p in params if p.grad is not None]
-        flat = torch.cat([g.reshape(-1) for g in grads])
-        dist.all_reduce(flat, op=dist.ReduceOp.SUM)
-        flat /= self.world
-        offset = 0
-        for g in grads:
-            g.copy_(flat[offset:offset + g.numel()].view_as(g))
-            offset += g.numel()
+        self._flat_collective(grads, lambda b: dist.all_reduce(b, op=dist.ReduceOp.SUM),
+                              scale=self.world)
 
     def mean_metrics(self, metrics: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """Scalar metrics averaged over the ranks (one all-reduce)."""
@@ -93,16 +115,12 @@ class DataParallel:
 
     def broadcast_module(self, module: torch.nn.Module) -> None:
         """Rank 0's parameters and buffers on every rank (one broadcast of
-        one flat buffer), as DistributedDataParallel does at its start."""
+        one flat buffer per device), as DistributedDataParallel does at its
+        start."""
         if self.world == 1:
             return
         tensors = [t.data for t in list(module.parameters()) + list(module.buffers())]
-        flat = torch.cat([t.reshape(-1).float() for t in tensors])
-        dist.broadcast(flat, src=0)
-        offset = 0
-        for t in tensors:
-            t.copy_(flat[offset:offset + t.numel()].view_as(t))
-            offset += t.numel()
+        self._flat_collective(tensors, lambda b: dist.broadcast(b, src=0))
 
     def agreed(self, batches: Iterable,
                widths: Optional[Callable[[Any], Sequence[int]]] = None,

@@ -10,14 +10,17 @@ POST /v1/audio/speech with {"input", "voice", "prompt", "response_format",
 "speed", "stream"}. Without --checkpoint the parameters are random, made
 from `--seed`; without --style-encoder the embeddings are zero (smoke mode).
 
-`--data-parallel N` holds one replica of the model on each of cuda:0 ..
-cuda:N-1 (N CPU replicas with `--device cpu`) and splits every batch over
-them; fewer cards than N is an error. `--multihost` runs one server per
+`--data-parallel M` holds one replica of the model on each of cuda:0 ..
+cuda:M-1 (M CPU replicas with `--device cpu`) and splits every batch over
+them. `--model-parallel N` splits each replica over N devices (vocoder
+channels and attention heads, `parallel/tensor_parallel.py`): replica i on
+cuda:iN .. cuda:iN+N-1, M x N cards in all (M x N CPU devices with
+`--device cpu`); fewer cards is an error. `--multihost` runs one server per
 process, as the JAX server does: each joins the process group of the
 torchrun environment (RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR,
 MASTER_PORT), holds a full replica on cuda:LOCAL_RANK (or `--device`) and
 answers on its own `--port`, behind a load balancer; requests never cross
-processes. The model-parallel mode of the JAX server is a later slice.
+processes, so neither flag above goes with it.
 """
 
 from __future__ import annotations
@@ -58,14 +61,23 @@ def main(argv=None):
     p.add_argument("--data-parallel", type=int, default=0,
                    help="replicas on cuda:0..N-1 (N CPU replicas with --device cpu); "
                         "0 = one device")
+    p.add_argument("--model-parallel", type=int, default=1,
+                   help="split each replica over N devices (tensor parallelism)")
     p.add_argument("--multihost", action="store_true",
                    help="join the torchrun process group; one server per process, each "
                         "with a full replica, behind a load balancer")
     args = p.parse_args(argv)
+    if args.model_parallel < 1:
+        p.error("--model-parallel must be at least 1")
+    n_devices = max(args.data_parallel, 1) * args.model_parallel
     if args.data_parallel > 1 and args.multihost:
         p.error("--data-parallel and --multihost: one server per process holds one replica")
-    if args.data_parallel > 1 and args.device and torch.device(args.device).index is not None:
-        p.error("--data-parallel places its replicas on cuda:0..N-1; name no card index")
+    if args.model_parallel > 1 and args.multihost:
+        p.error("--model-parallel and --multihost: one server per process holds its own "
+                "whole replica on its own card")
+    if n_devices > 1 and args.device and torch.device(args.device).index is not None:
+        p.error("--data-parallel / --model-parallel place the model on cuda:0..N-1; "
+                "name no card index")
 
     from emotivoice_tpu_torch.config import EmotiVoiceConfig, tiny_test_config
     from emotivoice_tpu_torch.frontend.en import read_lexicon
@@ -92,10 +104,10 @@ def main(argv=None):
         print(f"multihost: process {rank} of {world} on {device}", flush=True)
     else:
         device = resolve_device(args.device)  # raises before any work without a card
-    if args.data_parallel > 1:
-        n = args.data_parallel
+    if n_devices > 1:
+        n = n_devices
         if device.type == "cuda" and torch.cuda.device_count() < n:
-            raise RuntimeError(f"--data-parallel {n} needs {n} cards; "
+            raise RuntimeError(f"--data-parallel x --model-parallel = {n} needs {n} cards; "
                                f"{torch.cuda.device_count()} are visible")
         devices = [torch.device(device.type, i) if device.type == "cuda" else device
                    for i in range(n)]
@@ -108,7 +120,8 @@ def main(argv=None):
 
     model = build_generator(cfg, args.checkpoint, args.seed)
     engine = SynthesisEngine(cfg, model, vocab, dtype=args.dtype,
-                             device=None if devices else device, devices=devices)
+                             device=None if devices else device, devices=devices,
+                             model_parallel=args.model_parallel)
     embed_fn = build_embed_fn(cfg, args.style_encoder, args.tokenizer, device)
 
     if not args.no_warmup:

@@ -1,13 +1,13 @@
 """Batched synthesis engine: phoneme ids -> waveform with static-shape
-bucketing, on one device or on data-parallel replicas (counterpart of
-`emotivoice_tpu/serving/engine.py`).
+bucketing, on one device, on data-parallel replicas, or on replicas that
+are each split over a model group of devices (counterpart of
+`emotivoice_tpu/serving/engine.py` and its mesh's 'data' and 'model' axes).
 
 Requests are padded into (batch, text, mel) buckets from fixed ladders, so
 a later slice can capture one program per bucket. Padding rows carry one
 token and speaker 0. With several replicas a bucket is padded up to a
 multiple of their count and split evenly over them, as the JAX engine pads
-a batch to its mesh's data axis. The tensor-parallel branch is a later
-slice.
+a batch to its mesh's data axis.
 """
 
 from __future__ import annotations
@@ -26,6 +26,8 @@ import torch
 from emotivoice_tpu_torch.config import EmotiVoiceConfig
 from emotivoice_tpu_torch.frontend.tokens import TokenVocab
 from emotivoice_tpu_torch.models.jets import JETSGenerator
+from emotivoice_tpu_torch.parallel.mesh import make_mesh, split_rows
+from emotivoice_tpu_torch.parallel.tensor_parallel import tensor_parallel
 from emotivoice_tpu_torch.utils.device import resolve_device, resolve_dtype
 
 DEFAULT_TEXT_BUCKETS = (16, 32, 48, 64, 96, 128, 192, 256)
@@ -66,9 +68,13 @@ class SynthesisEngine:
     replica of the model on each entry, which may repeat a device (two
     replicas on one card) and may be CPU devices; the replicas run their
     shares of each bucket at the same time, one thread each, and the rows
-    are gathered back in order. `dtype` is the compute dtype ('f32' /
-    'bf16' or a torch dtype); parameters stay f32 and the waveform comes
-    back f32.
+    are gathered back in order. With `model_parallel` N, `devices` is cut
+    into `len(devices) // N` model groups of N (`parallel.mesh.make_mesh`)
+    and each replica is split over its group (`parallel.tensor_parallel`:
+    vocoder channels and attention heads; the MRF kernels run on whole
+    weights gathered to the group's first device); its rows enter and its
+    waveform leaves there. `dtype` is the compute dtype ('f32' / 'bf16' or a
+    torch dtype); parameters stay f32 and the waveform comes back f32.
 
     `run` is serialized: it holds one lock for the whole model call, so
     callers on several threads (the batcher's worker, the warmup daemon,
@@ -88,6 +94,7 @@ class SynthesisEngine:
         dtype: Union[str, torch.dtype] = torch.float32,
         device: Optional[Union[str, torch.device]] = None,
         devices: Optional[Sequence[Union[str, torch.device]]] = None,
+        model_parallel: int = 1,
     ):
         if devices is not None and device is not None:
             raise ValueError("pass device (one replica) or devices (one replica each), not both")
@@ -95,11 +102,13 @@ class SynthesisEngine:
             raise ValueError("devices must name at least one device")
         self.devices = [resolve_device(d) for d in (devices or [device])]
         self.device = self.devices[0]
+        self.groups = make_mesh(self.devices, model_parallel)
         self.dtype = resolve_dtype(dtype)
         self.cfg = cfg
-        self.model = model.to(self.device).eval()
-        self.replicas = [self.model] + [copy.deepcopy(self.model).to(d).eval()
-                                        for d in self.devices[1:]]
+        copies = [copy.deepcopy(model) for _ in self.groups[1:]]
+        self.replicas = [tensor_parallel(m, g).eval()
+                         for m, g in zip([model] + copies, self.groups)]
+        self.model = self.replicas[0]
         self.vocab = vocab
         self.text_buckets = tuple(text_buckets)
         self.mel_buckets = tuple(mel_buckets)
@@ -142,7 +151,7 @@ class SynthesisEngine:
 
     def _run_replica(self, i: int, arrays, max_frames: int, alpha: float):
         """Replica i on its rows (inference mode is per thread)."""
-        dev = self.devices[i]
+        dev = self.groups[i][0]
         tokens, lengths, speaker, style, content = arrays
         with torch.inference_mode():
             out = self.replicas[i](
@@ -166,14 +175,9 @@ class SynthesisEngine:
         with self._run_lock:
             if n == 1:
                 return self._run_replica(0, arrays, max_frames, alpha)
-            b = len(tokens)
-            if b % n:
-                raise ValueError(f"a bucket of {b} rows does not split over {n} replicas")
-            rows = b // n
-            futures = [self._pool.submit(self._run_replica, i,
-                                         tuple(a[i * rows:(i + 1) * rows] for a in arrays),
+            futures = [self._pool.submit(self._run_replica, i, tuple(a[rows] for a in arrays),
                                          max_frames, alpha)
-                       for i in range(n)]
+                       for i, rows in enumerate(split_rows(len(tokens), n))]
             parts = [f.result() for f in futures]
             return (np.concatenate([w for w, _ in parts]),
                     np.concatenate([f for _, f in parts]))

@@ -33,6 +33,15 @@ that are not per-row means, the masked prosody means, divide by the global
 batch's valid-token count; the segment starts are drawn for the global
 batch from the shared seeded generator. Spectral-norm u, v follow D's
 weights only, so they stay equal on every rank.
+
+The models may be tensor-parallel (`parallel.tensor_parallel`; the JAX
+`make_parallel_train_step(state=...)` over a 'model' axis): the optimizers
+then hold the parameters' parts, which is exact for Adam (elementwise),
+and a parameter held whole on `devices[0]` gets its whole gradient from
+autograd through the collectives, so no gradient needs a reduction across
+shards. `state_dict()` gathers Adam's moments into the
+one-device layout, as the models' own state dicts do, so a checkpoint
+resumes in either layout.
 """
 
 from __future__ import annotations
@@ -51,6 +60,10 @@ from emotivoice_tpu_torch.models.discriminator import (
 from emotivoice_tpu_torch.ops.mel import mel_spectrogram
 from emotivoice_tpu_torch.ops.segments import get_segments, random_starts
 from emotivoice_tpu_torch.parallel.data_parallel import DataParallel
+from emotivoice_tpu_torch.parallel.tensor_parallel import (
+    load_optimizer_state_dict,
+    optimizer_state_dict,
+)
 from emotivoice_tpu_torch.training.losses import (
     alignment_losses,
     prosody_losses,
@@ -199,13 +212,15 @@ class TrainStep:
         return self.dp.mean_metrics(metrics)
 
     def state_dict(self) -> dict:
-        """Optimizers, update count and the segment generator's state."""
-        return {"optim_g": self.opt_g.state_dict(), "optim_d": self.opt_d.state_dict(),
+        """Optimizers (in the one-device layout), update count and the
+        segment generator's state."""
+        return {"optim_g": optimizer_state_dict(self.opt_g, self.model),
+                "optim_d": optimizer_state_dict(self.opt_d, self.disc),
                 "iteration": self.count, "segment_rng": self.segment_generator.get_state()}
 
     def load_state_dict(self, state: dict) -> None:
-        self.opt_g.load_state_dict(state["optim_g"])
-        self.opt_d.load_state_dict(state["optim_d"])
+        load_optimizer_state_dict(self.opt_g, self.model, state["optim_g"])
+        load_optimizer_state_dict(self.opt_d, self.disc, state["optim_d"])
         self.count = int(state["iteration"])
         if "segment_rng" in state:
             self.segment_generator.set_state(state["segment_rng"].cpu())

@@ -567,7 +567,8 @@ def test_serve_cli_rejects_the_parallel_flags():
     data-parallel ones in combinations it refuses."""
     from emotivoice_tpu_torch import serve
 
-    for flags in (["--model-parallel=2", "--device", "cpu"], ["--use-pallas", "--device", "cpu"],
+    for flags in (["--model-parallel=2", "--multihost", "--device", "cpu"],
+                  ["--use-pallas", "--device", "cpu"],
                   ["--data-parallel=2", "--multihost", "--device", "cpu"],
                   ["--data-parallel=2", "--device", "cuda:1"]):
         with pytest.raises(SystemExit):
@@ -593,6 +594,33 @@ def test_serve_cli_serves_on_the_cpu(monkeypatch):
                 "--port", "0", "--seed", "1"])
     assert served["voices"] == 8 and served["failures"] == 0
     assert len(parse_wav(served["wav"])) % 256 == 0
+
+
+def test_serve_cli_model_parallel_serves_on_the_cpu(monkeypatch):
+    """`--model-parallel 2 --device cpu`: one replica split over two CPU
+    devices answers a request through the stdlib branch, with the same
+    waveform as the one-device server of the same seed."""
+    from emotivoice_tpu_torch import serve
+
+    monkeypatch.setitem(sys.modules, "uvicorn", None)
+    served = []
+
+    def fake_serve(service, host, port):
+        with service:
+            served.append((service.engine, service.speech("Hello world.", "3")))
+
+    monkeypatch.setattr(api, "serve_stdlib", fake_serve)
+    args = ["--device", "cpu", "--smoke-tiny", "--no-warmup", "--no-background-warmup",
+            "--port", "0", "--seed", "1"]
+    serve.main(args + ["--model-parallel", "2"])
+    serve.main(args)
+    (tp, wav_tp), (one, wav_one) = served
+    assert tp.groups == [[torch.device("cpu")] * 2] and len(tp.replicas) == 1
+    assert type(tp.model.generator.conv_post).__name__ == "RowParallel"
+    assert type(one.model.generator.conv_post).__name__ == "WNConv1d"
+    pcm_tp, pcm_one = parse_wav(wav_tp), parse_wav(wav_one)
+    assert len(pcm_tp) == len(pcm_one) > 0 and len(pcm_tp) % 256 == 0
+    assert np.abs(pcm_tp.astype(np.int32) - pcm_one).max() <= 1
 
 
 def test_synthesize_cli_with_checkpoints(tmp_path, monkeypatch):

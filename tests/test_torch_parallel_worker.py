@@ -5,12 +5,14 @@ gloo. The rank and the group come from the torchrun environment (RANK,
 WORLD_SIZE, MASTER_ADDR, MASTER_PORT); without it the process is the one-
 process reference. Modes:
 
-  step   --out F.npz [--steps N]: N steps of the port's `TrainStep` on a
-         seeded global batch of 4 rows (one padded shape, as the JAX
-         package's global array), this rank's 2 (or all 4 in one process):
-         rank 0 holds the long rows, rank 1 the short ones. Writes the
-         metrics of every step, the segment starts, the mean gradients of
-         step 1 and every parameter and buffer after step N. Then, from
+  step   --out F.npz [--steps N] [--tp N]: N steps of the port's
+         `TrainStep` on a seeded global batch of 4 rows (one padded shape,
+         as the JAX package's global array), this rank's 2 (or all 4 in one
+         process): rank 0 holds the long rows, rank 1 the short ones; with
+         --tp the models are split over N CPU devices
+         (`parallel.tensor_parallel`). Writes the metrics of every step, the
+         segment starts, the mean gradients of step 1 and every parameter
+         and buffer after step N, all in the one-device layout. Then, from
          fresh models, one step whose masked prosody means are each rank's
          own (the control that must miss), and its generator gradients.
   loader --out F.json: this rank's share of a datalist through a bucketed,
@@ -93,17 +95,32 @@ def collate(rows):
             for k, v in out.items()}
 
 
-def fresh_trainer(cfg, dp):
+def fresh_trainer(cfg, dp, tp=1):
+    from emotivoice_tpu_torch.parallel.tensor_parallel import tensor_parallel
     from emotivoice_tpu_torch.training.loop import build_models
     from emotivoice_tpu_torch.training.step import TrainStep
 
     torch.manual_seed(0)
-    return TrainStep(cfg, *build_models(cfg, torch.device("cpu")), steps_per_epoch=1000, dp=dp)
+    models = [tensor_parallel(m, ["cpu"] * tp) for m in build_models(cfg, torch.device("cpu"))]
+    return TrainStep(cfg, *models, steps_per_epoch=1000, dp=dp)
+
+
+def whole_grads(prefix, module):
+    """{prefix.name: gradient} of every parameter with one, in the one-device
+    layout (a split parameter's parts' gradients gathered)."""
+    from emotivoice_tpu_torch.parallel.tensor_parallel import full_parameters
+
+    out = {}
+    for name, parts, dim in full_parameters(module):
+        if parts[0].grad is not None:
+            g = parts[0].grad if dim is None else torch.cat([p.grad for p in parts], dim)
+            out[f"{prefix}.{name}"] = g.numpy().copy()
+    return out
 
 
 def run_steps(args, dp) -> None:
     cfg = train_config()
-    trainer = fresh_trainer(cfg, dp)
+    trainer = fresh_trainer(cfg, dp, args.tp)
     starts = []
     draw = trainer.draw_starts
     trainer.draw_starts = lambda lengths: starts.append(draw(lengths)) or starts[-1]
@@ -115,22 +132,17 @@ def run_steps(args, dp) -> None:
             out[f"metric/{step}/{k}"] = float(v)
         out[f"starts/{step}"] = starts[-1].numpy()
         if step == 0:
-            named = {**{f"g.{k}": p for k, p in trainer.model.named_parameters()},
-                     **{f"d.{k}": p for k, p in trainer.disc.named_parameters()}}
-            for k, p in named.items():
-                if p.grad is not None:
-                    out[f"grad/{k}"] = p.grad.numpy().copy()
+            grads = {**whole_grads("g", trainer.model), **whole_grads("d", trainer.disc)}
+            out.update({f"grad/{k}": v for k, v in grads.items()})
     for prefix, module in (("g", trainer.model), ("d", trainer.disc)):
         for k, v in module.state_dict().items():
             out[f"param/{prefix}.{k}"] = v.numpy()
 
     # The control: each rank's masked means over its own tokens.
-    trainer = fresh_trainer(cfg, dp)
+    trainer = fresh_trainer(cfg, dp, args.tp)
     trainer.token_count = lambda text_lengths: None
     trainer(dp.shard_batch(collate(global_rows(cfg, seed=100))))
-    for k, p in trainer.model.named_parameters():
-        if p.grad is not None:
-            out[f"control_grad/g.{k}"] = p.grad.numpy().copy()
+    out.update({f"control_grad/{k}": v for k, v in whole_grads("g", trainer.model).items()})
     np.savez(args.out, **out)
 
 
@@ -181,6 +193,7 @@ def main() -> None:
     ap.add_argument("mode", choices=["step", "loader"])
     ap.add_argument("--out", required=True)
     ap.add_argument("--steps", type=int, default=5)
+    ap.add_argument("--tp", type=int, default=1, help="model group size (CPU devices)")
     args = ap.parse_args()
     torch.set_num_threads(1)
     rank, world = initialize_multihost("cpu", timeout_s=240)
