@@ -105,6 +105,24 @@ Phases (any failure exits non-zero and prints no result line):
                 launches), the TP checkpoint restored bit-equal into a
                 one-device trainer. Both shards on one card show no
                 scaling;
+  10c. tp_ranks - tensor parallelism across processes: two ranks (this
+                script with --tp-worker, the torchrun environment) as a
+                (data, model) mesh of one model group of 2, one shard per
+                rank (`RankGroup`); both on cuda:0 over gloo, or cuda:0 and
+                cuda:1 over NCCL where the machine has two cards. The bench
+                bucket through a SynthesisEngine over the rank group
+                against the one-device engine, f32 then bf16, at
+                [tp_serve]'s tolerances, both ranks' waveforms equal, 18 +
+                2 launches per generator call on each rank, both kernels
+                against their plain versions at each rank's shapes; one
+                TrainStep over the rank group against one device on
+                [tp_train]'s batch (losses, the 11 gradient norms), 5 more
+                steps (0 launches), validation through the kernels (18 + 2
+                on each rank), the checkpoint restored bit-equal into a
+                one-device trainer and back into the ranks; ms per call
+                and per step, collectives and their bytes per generator
+                call and per step, parameter bytes and peak memory per
+                rank, the backend;
   11. style_pretrain - the full-width style encoder: one PretrainStep card
                 vs CPU (dropout off), then `pretrain` for 5 steps at batch
                 16 (dropout on): ms per step;
@@ -2345,6 +2363,486 @@ def phase_tp_train(dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# 10c. tensor parallelism over ranks: two processes, one shard each
+# ---------------------------------------------------------------------------
+
+TP_RANKS = 2
+
+
+def _tp_rank_places() -> list:
+    """(device, backend) of each rank of `[tp_ranks]`: one card each over
+    NCCL where the machine has two, else both on cuda:0 over gloo (NCCL
+    refuses two ranks on one card)."""
+    if torch.cuda.device_count() >= TP_RANKS:
+        return [(f"cuda:{r}", "nccl") for r in range(TP_RANKS)]
+    return [("cuda:0", "gloo")] * TP_RANKS
+
+
+def _bench_args(cfg, vocab, seed: int):
+    """A seeded bench bucket's engine inputs (numpy)."""
+    rng = np.random.RandomState(seed)
+    d = cfg.am.bert_embedding
+    lengths = rng.randint(BENCH_T_TEXT // 2, BENCH_T_TEXT + 1, BENCH_B)
+    toks = rng.randint(2, len(vocab), (BENCH_B, BENCH_T_TEXT))
+    return (toks, lengths, rng.randint(0, cfg.am.n_speaker, BENCH_B),
+            rng.randn(BENCH_B, d).astype(np.float32), rng.randn(BENCH_B, d).astype(np.float32))
+
+
+def _rank_collectives(group, n: int = 1) -> dict:
+    """A RankGroup's collectives since its counters were cleared, per one of
+    `n` calls: {kind: [calls, bytes]}."""
+    return {k: [group.calls[k] / n, group.bytes[k] / n] for k in sorted(group.calls)}
+
+
+def _collectives_str(c: dict) -> str:
+    return ", ".join(f"{k} {v[0]:.0f} x ({v[1] / 2**20:.1f} MiB)" for k, v in c.items())
+
+
+def rank_grad_norms(model, disc, names, group) -> dict:
+    """The gradient norm of each named parameter over the model group: a
+    split parameter's square sums added over the ranks."""
+    from emotivoice_tpu_torch.parallel.tensor_parallel import full_parameters
+
+    found = {}
+    for module in (model, disc):
+        for name, parts, dim in full_parameters(module):
+            if name in names:
+                sq = parts[0].grad.double().pow(2).sum().reshape(1)
+                if dim is not None:
+                    sq = group.all_reduce(sq)
+                found[name] = float(sq.sqrt())
+    return {k: found[k] for k in names}
+
+
+def tp_rank_serve(dev, group, tmp: str) -> dict:
+    """One rank's share of `[tp_ranks]`' serving: the bench bucket through a
+    SynthesisEngine split over the rank group, f32 then bf16."""
+    import copy
+
+    from emotivoice_tpu_torch.ops.cuda.mrf_stage import fused_mrf_stage
+    from emotivoice_tpu_torch.ops.cuda.resblock import fused_residual_unit
+    from emotivoice_tpu_torch.serving.engine import SynthesisEngine
+
+    cfg, vocab, base = _build_model()
+    args = _bench_args(cfg, vocab, SEED + 9)
+    inputs = [torch.as_tensor(a, device=dev) for a in args]
+    out, shapes, paths = {}, {}, []
+    for dname in ("f32", "bf16"):
+        dtype = torch.float32 if dname == "f32" else torch.bfloat16
+        torch.cuda.reset_peak_memory_stats(dev)
+        eng = SynthesisEngine(cfg, copy.deepcopy(base), vocab, model_group=group, dtype=dname)
+        if type(eng.model.generator.conv_post).__name__ != "RowParallel":
+            fail(f"[tp_ranks] the engine did not split the model: {eng.model.generator.conv_post}")
+        recorded, hooks = watch_stage_shapes(eng.model)
+        torch.cuda.synchronize(dev)
+        fused_residual_unit.launches = 0
+        fused_mrf_stage.launches = 0
+        group.calls.clear()
+        group.bytes.clear()
+        try:
+            _, n2 = eng.run(*args, BENCH_FRAMES, 1.0)
+            torch.cuda.synchronize(dev)
+        finally:
+            for h in hooks:
+                h.remove()
+        launches = {"fused_residual_unit": fused_residual_unit.launches,
+                    "fused_mrf_stage": fused_mrf_stage.launches}
+        collectives = _rank_collectives(group)
+        mel1 = torch.load(os.path.join(tmp, f"mel_{dname}.pt")).to(dev)
+        with torch.inference_mode():
+            o2 = eng.model(*inputs, max_frames=BENCH_FRAMES, dtype=dtype)
+            voc = eng.model.generator(mel1, dtype=dtype)
+        ms = []
+        for _ in range(3):
+            torch.distributed.barrier()
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            eng.run(*args, BENCH_FRAMES, 1.0)
+            torch.cuda.synchronize(dev)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        np.savez(os.path.join(tmp, f"serve_{dname}_rank{group.index}.npz"), n2=n2,
+                 durations=o2["durations"].cpu().numpy(),
+                 wav=o2["wav_predictions"].float().cpu().numpy(),
+                 voc=voc.float().cpu().numpy())
+        sb = shard_bytes(eng.model)
+        out[dname] = dict(launches=launches, collectives=collectives, ms=ms,
+                          median_ms=float(np.median(ms)), bytes_shard=sb["per_shard"],
+                          bytes_whole=sb["whole"], peak_bytes=torch.cuda.max_memory_allocated(dev))
+        shapes[dname] = recorded
+        # both kernels against their plain versions at this path's shapes, on
+        # the weights the rank gathered (every rank checks the same shapes)
+        paths.append(check_path_kernels(dev, eng.model, recorded, f"tp_ranks_{dname}"))
+        del eng, o2, voc
+        torch.cuda.empty_cache()
+    return dict(serve=out, path=_merge_paths(*paths))
+
+
+def tp_rank_train(dev, group, mesh, tmp: str) -> dict:
+    """One rank's share of `[tp_ranks]`' training: a TrainStep over models
+    split on the rank group, dropout off, on [tp_train]'s batch: one step
+    (losses, gradient norms), TP_STEPS more, a validation pass through the
+    kernels, and the checkpoint both ways."""
+    from emotivoice_tpu_torch.ops.cuda.mrf_stage import fused_mrf_stage
+    from emotivoice_tpu_torch.ops.cuda.resblock import fused_residual_unit
+    from emotivoice_tpu_torch.parallel.data_parallel import DataParallel
+    from emotivoice_tpu_torch.parallel.sharding import shard_tensor
+    from emotivoice_tpu_torch.parallel.tensor_parallel import full_parameters, tensor_parallel
+    from emotivoice_tpu_torch.training.loop import CheckpointManager, build_models
+    from emotivoice_tpu_torch.training.step import TrainStep
+    from emotivoice_tpu_torch.training.validate import make_validate_fn
+
+    cfg, _, batch = _dp_setup(os.path.join(tmp, "corpus"), os.path.join(tmp, "cache"), dev)
+    dp = DataParallel.from_mesh(mesh, dev)
+
+    def trainer(split: bool):
+        model, disc = build_models(cfg, dev)
+        model.eval()
+        disc.eval()
+        if split:
+            model, disc = tensor_parallel(model, group), tensor_parallel(disc, group)
+        return TrainStep(cfg, model, disc, dp=dp if split else None)
+
+    tr = trainer(True)
+    fused_residual_unit.launches = 0
+    fused_mrf_stage.launches = 0
+    metrics = tr(batch)
+    first = dict(metrics={k: float(v) for k, v in metrics.items()},
+                 grads=rank_grad_norms(tr.model, tr.disc, TRAIN_GRAD_PARAMS, group))
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    resident = torch.cuda.memory_allocated(dev)
+    group.calls.clear()
+    group.bytes.clear()
+    ms = []
+    for _ in range(TP_STEPS):
+        torch.distributed.barrier()
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        tr(batch)
+        torch.cuda.synchronize(dev)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    step_collectives = _rank_collectives(group, TP_STEPS)
+    peak = torch.cuda.max_memory_allocated(dev) - resident
+    launches_steps = {"fused_residual_unit": fused_residual_unit.launches,
+                      "fused_mrf_stage": fused_mrf_stage.launches}
+
+    # validation through the kernels, on the train batch's 16 whole mels
+    recorded, hooks = watch_stage_shapes(tr.model)
+    fused_residual_unit.launches = 0
+    fused_mrf_stage.launches = 0
+    group.calls.clear()
+    group.bytes.clear()
+    try:
+        t0 = time.perf_counter()
+        valid = make_validate_fn(cfg, tr.model, lambda: [batch], None)(tr.count)
+        torch.cuda.synchronize(dev)
+        valid_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        for h in hooks:
+            h.remove()
+    launches_valid = {"fused_residual_unit": fused_residual_unit.launches,
+                      "fused_mrf_stage": fused_mrf_stage.launches}
+    valid_collectives = _rank_collectives(group)
+    path = check_path_kernels(dev, tr.model, recorded, "tp_ranks_valid")
+
+    # the checkpoint: gathered by both ranks, written by the first; restored
+    # into a one-device trainer (each rank holds its cut of it against its
+    # own parts) and into a fresh rank-group trainer (against the live one)
+    ckpt = CheckpointManager(os.path.join(tmp, "ckpt"))
+    ckpt.save(tr, write=group.index == 0)
+    torch.distributed.barrier()
+
+    def held(t):
+        """{name: (split dim, part, exp_avg, exp_avg_sq)} of both models."""
+        out = {}
+        for prefix, module, opt in (("g", t.model, t.opt_g), ("d", t.disc, t.opt_d)):
+            for name, parts, dim in full_parameters(module):
+                st = opt.state.get(parts[0], {})
+                out[f"{prefix}.{name}"] = (dim, parts[0], st.get("exp_avg"),
+                                           st.get("exp_avg_sq"))
+        return out
+
+    live = held(tr)
+    one = trainer(False)
+    step_one = ckpt.restore(one)
+    whole = held(one)
+    same_one = True
+    for k, (dim, part, m1, m2) in live.items():
+        cut = (lambda t: t) if dim is None else (
+            lambda t: shard_tensor(t, dim, group.size)[group.index].to(part.device))
+        _, w, w1, w2 = whole[k]
+        same_one &= bool(torch.equal(cut(w.detach()), part.detach())
+                         and torch.equal(cut(w1), m1) and torch.equal(cut(w2), m2))
+    del one, whole
+    back = trainer(True)
+    step_back = ckpt.restore(back)
+    same_back = all(torch.equal(p.detach(), live[k][1].detach()) and torch.equal(m1, live[k][2])
+                    and torch.equal(m2, live[k][3])
+                    for k, (_, p, m1, m2) in held(back).items())
+    return dict(first=first, ms=ms, median_ms=float(np.median(ms)), peak_bytes=peak,
+                collectives_step=step_collectives, launches_steps=launches_steps,
+                valid={k: float(v) for k, v in valid.items()}, valid_ms=valid_ms,
+                launches_valid=launches_valid, collectives_valid=valid_collectives, path=path,
+                checkpoint=dict(step=tr.count, one_step=step_one, back_step=step_back,
+                                one_bit_equal=same_one, back_bit_equal=same_back,
+                                n_params=len(live)))
+
+
+def tp_worker(argv) -> None:
+    """One rank of `[tp_ranks]` (this script run with --tp-worker): joins
+    the process group of the torchrun environment, lays the ranks out as a
+    (data, model) mesh of one model group, runs tp_rank_serve and
+    tp_rank_train and writes their numbers to --tp-dir."""
+    from emotivoice_tpu_torch.parallel.mesh import make_rank_mesh
+    from emotivoice_tpu_torch.parallel.multihost import initialize_multihost
+    from emotivoice_tpu_torch.parallel.tensor_parallel import RankGroup
+
+    p = argparse.ArgumentParser(allow_abbrev=False)
+    p.add_argument("--tp-worker", action="store_true", required=True)
+    p.add_argument("--tp-dir", required=True)
+    p.add_argument("--tp-device", required=True)
+    p.add_argument("--tp-backend", required=True)
+    args = p.parse_args(argv)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(args.tp_device)
+    torch.cuda.set_device(dev)
+    rank, world = initialize_multihost(dev, args.tp_backend, timeout_s=300)
+    try:
+        mesh = make_rank_mesh(TP_RANKS)
+        group = RankGroup(mesh.model_group, dev)
+        out = dict(rank=rank, world=world, device=str(dev), backend=args.tp_backend,
+                   data_index=mesh.data_index, model_index=mesh.model_index,
+                   model_ranks=torch.distributed.get_process_group_ranks(mesh.model_group))
+        out.update(tp_rank_serve(dev, group, args.tp_dir))
+        out["train"] = tp_rank_train(dev, group, mesh, args.tp_dir)
+        torch.distributed.barrier()
+    finally:
+        torch.distributed.destroy_process_group()
+    with open(os.path.join(args.tp_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def _spawn_tp_ranks(tmp: str, timeout: float = 720.0) -> list:
+    """TP_RANKS processes of this script with --tp-worker and the torchrun
+    environment; fails (and kills the others) as soon as one exits non-zero,
+    or at `timeout`. Returns each rank's log."""
+    port = _free_port()
+    procs = []
+    try:
+        for r, (d, backend) in enumerate(_tp_rank_places()):
+            log_path = os.path.join(tmp, f"tp_rank{r}.log")
+            env = _dp_env(r, port)
+            env["WORLD_SIZE"] = str(TP_RANKS)
+            procs.append((subprocess.Popen(
+                _worker_cmd() + ["--tp-worker", "--tp-dir", tmp, "--tp-device", d,
+                                 "--tp-backend", backend],
+                env=env, cwd=ROOT, stdout=open(log_path, "w"), stderr=subprocess.STDOUT),
+                log_path))
+        deadline = time.time() + timeout
+        while any(p.poll() is None for p, _ in procs):
+            if time.time() > deadline or any(p.poll() not in (None, 0) for p, _ in procs):
+                break
+            time.sleep(1.0)
+    finally:
+        for p, _ in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=60)
+    texts = [open(path).read() for _, path in procs]
+    for r, ((p, _), text) in enumerate(zip(procs, texts)):
+        if p.returncode != 0:
+            fail(f"[tp_ranks] rank {r} exited {p.returncode}: {text[-3000:]}")
+    return texts
+
+
+def phase_tp_ranks(dev, cfg, vocab, model) -> dict:
+    """Tensor parallelism over two processes, one shard each (the 'model'
+    axis across processes; the ranks from this script with --tp-worker):
+    the bench bucket through a SynthesisEngine over the rank group against
+    the one-device engine, f32 (TF32 off) then bf16, at `[tp_serve]`'s
+    tolerances, both ranks' waveforms equal, 18 + 2 launches per generator
+    call on each rank and both kernels held against their plain versions
+    at the shapes each rank gave them; then a TrainStep over the rank group
+    against one device on `[tp_train]`'s batch (losses, the 11 gradient
+    norms, 0 kernel launches), TP_STEPS more steps, validation through the
+    kernels (18 + 2 per rank) and the checkpoint restored bit-equal into a
+    one-device trainer and back into the ranks. Prints ms per call and per
+    step, the collectives per generator call and per step and the bytes
+    they move, parameter bytes and peak memory per rank, and the backend."""
+    from emotivoice_tpu_torch.data.synthetic_corpus import main as make_corpus
+    from emotivoice_tpu_torch.serving.engine import SynthesisEngine
+    from emotivoice_tpu_torch.training.loop import build_models
+    from emotivoice_tpu_torch.training.step import TrainStep
+
+    places = _tp_rank_places()
+    backend = places[0][1]
+    args = _bench_args(cfg, vocab, SEED + 9)
+    inputs = [torch.as_tensor(a, device=dev) for a in args]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tpr_")
+    try:
+        # the one-device references, before the ranks share the card
+        ref = {}
+        for dname in ("f32", "bf16"):
+            dtype = torch.float32 if dname == "f32" else torch.bfloat16
+            one = SynthesisEngine(cfg, model, vocab, device=dev, dtype=dname)
+            _, n1 = one.run(*args, BENCH_FRAMES, 1.0)
+            with torch.inference_mode():
+                o1 = one.model(*inputs, max_frames=BENCH_FRAMES, dtype=dtype)
+            torch.save(o1["dec_outputs"].cpu(), os.path.join(tmp, f"mel_{dname}.pt"))
+            ms = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                one.run(*args, BENCH_FRAMES, 1.0)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+            ref[dname] = dict(n1=n1, durations=o1["durations"].cpu().numpy(),
+                              wav=o1["wav_predictions"].float().cpu().numpy(),
+                              median_ms=float(np.median(ms)))
+            del one, o1
+        make_corpus(["--out", os.path.join(tmp, "corpus"), "--n-train", "64", "--n-valid", "8",
+                     "--n-speakers", "4", "--seed", str(SEED)])
+        tcfg, ds, batch = _dp_setup(os.path.join(tmp, "corpus"), os.path.join(tmp, "cache"), dev)
+        for i in range(len(ds)):  # every feature on the card into the cache, for the ranks
+            ds[i]
+        m, d = build_models(tcfg, dev)
+        m.eval()
+        d.eval()
+        tr = TrainStep(tcfg, m, d)
+        metrics = tr(batch)
+        one_step = dict(metrics={k: float(v) for k, v in metrics.items()},
+                        grads=whole_grad_norms(tr.model, tr.disc, TRAIN_GRAD_PARAMS))
+        one_ms = []
+        for _ in range(TP_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tr(batch)
+            torch.cuda.synchronize()
+            one_ms.append((time.perf_counter() - t0) * 1e3)
+        del tr, m, d, metrics
+        torch.cuda.empty_cache()
+
+        t0 = time.perf_counter()
+        texts = _spawn_tp_ranks(tmp)
+        ranks_s = time.perf_counter() - t0
+        ranks = [json.load(open(os.path.join(tmp, f"rank{r}.json"))) for r in range(TP_RANKS)]
+        serve = {dname: [dict(np.load(os.path.join(tmp, f"serve_{dname}_rank{r}.npz")))
+                         for r in range(TP_RANKS)] for dname in ("f32", "bf16")}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for r, text in enumerate(texts):
+        for line in text.splitlines():
+            if line.startswith("[tp_ranks"):
+                log(f"  rank {r}: {line}")
+
+    mib, gib = 2 ** 20, 2 ** 30
+    per_call = launches_per_call(cfg.vocoder)
+    out = dict(backend=backend, devices=[p[0] for p in places], ranks_s=ranks_s, serve={})
+    audio_s = BENCH_B * BENCH_FRAMES * cfg.audio.hop_length / cfg.audio.sampling_rate
+    for dname in ("f32", "bf16"):
+        want, got = ref[dname], serve[dname]
+        r0 = got[0]
+        for r, g in enumerate(got[1:], 1):
+            for k in ("n2", "durations", "wav", "voc"):
+                if not np.array_equal(g[k], r0[k]):
+                    fail(f"[tp_ranks] {dname}: rank {r}'s {k} differs from rank 0's: max "
+                         f"{float(np.abs(g[k].astype(np.float64) - r0[k]).max()):.3g}")
+        for r, rk in enumerate(ranks):
+            if tuple(rk["serve"][dname]["launches"].values()) != per_call:
+                fail(f"[tp_ranks] {dname}: rank {r} launched {rk['serve'][dname]['launches']} "
+                     f"!= {per_call} per generator call")
+        same = (r0["durations"] == want["durations"]).all(axis=1)
+        off = np.abs(r0["n2"].astype(np.int64) - want["n1"])
+        if dname == "f32" and not (same.all() and np.array_equal(r0["n2"], want["n1"])):
+            fail(f"[tp_ranks] f32: durations differ: {r0['n2']} vs {want['n1']}")
+        if not same.any() or np.any(off > 1 + TP_BF16_FRAMES * want["n1"]):
+            fail(f"[tp_ranks] {dname}: durations differ beyond rounding: {r0['n2']} vs "
+                 f"{want['n1']}, {int(same.sum())} rows with equal durations")
+        scale = float(np.abs(want["wav"]).max())
+        err = float(np.abs(r0["wav"][same] - want["wav"][same]).max())
+        err_voc = float(np.abs(r0["voc"] - want["wav"]).max())
+        tol = TOL_CPU if dname == "f32" else TOL_DP_BF16
+        if (not np.all(np.isfinite(r0["wav"])) or scale < 1e-3 or err > tol * scale
+                or err_voc > tol * scale):
+            fail(f"[tp_ranks] {dname}: ranks vs one device: max err {err:.3g} (rows with equal "
+                 f"durations), {err_voc:.3g} (the vocoder on one mel) > {tol} x max {scale:.3g}")
+        s0 = ranks[0]["serve"][dname]
+        out["serve"][dname] = dict(err=err, err_vocoder=err_voc, scale=scale,
+                                   rows_same_durations=int(same.sum()), frames_off=off.tolist(),
+                                   one_ms=want["median_ms"],
+                                   ranks=[rk["serve"][dname] for rk in ranks])
+        log(f"[tp_ranks] {dname}, bench bucket B={BENCH_B} x {BENCH_T_TEXT} tokens x "
+            f"{BENCH_FRAMES} frames, one replica split over {TP_RANKS} ranks ({backend}, "
+            f"{', '.join(out['devices'])}): durations equal on {int(same.sum())} of {BENCH_B} rows "
+            f"(frames off by {sorted(int(o) for o in off[~same])} on the others); max |ranks - "
+            f"one device| {err:.2e} on those rows, the vocoder on the one-device mel "
+            f"{err_voc:.2e} (tol {tol} x max {scale:.3f}); the ranks' waveforms equal; launches "
+            f"{s0['launches']} per generator call on each rank; "
+            f"{s0['median_ms']:.1f} / {ranks[1]['serve'][dname]['median_ms']:.1f} ms per run "
+            f"on rank 0 / 1 vs {want['median_ms']:.1f} ms one device (median of 3; xRT "
+            f"{audio_s * 1e3 / s0['median_ms']:.1f} vs {audio_s * 1e3 / want['median_ms']:.1f}); "
+            f"collectives per generator call on each rank: {_collectives_str(s0['collectives'])}; "
+            f"parameter MiB per rank {s0['bytes_shard'][0] / mib:.2f} split + "
+            f"{s0['bytes_whole'] / mib:.2f} whole; peak memory per rank "
+            + ", ".join(f"{rk['serve'][dname]['peak_bytes'] / gib:.2f}" for rk in ranks)
+            + " GiB")
+
+    t0 = ranks[0]["train"]
+    per_call_valid = launches_per_call(tcfg.vocoder)
+    for r, rk in enumerate(ranks):
+        t = rk["train"]
+        if t["first"]["metrics"] != t0["first"]["metrics"]:
+            fail(f"[tp_ranks] the ranks' metrics differ: {t['first']['metrics']} vs "
+                 f"{t0['first']['metrics']}")
+        if any(t["launches_steps"].values()):
+            fail(f"[tp_ranks] rank {r}'s train steps launched kernels: {t['launches_steps']}")
+        if tuple(t["launches_valid"].values()) != per_call_valid:
+            fail(f"[tp_ranks] rank {r}'s validation launched {t['launches_valid']} != "
+                 f"{per_call_valid} per generator call")
+        ck = t["checkpoint"]
+        if not (ck["one_bit_equal"] and ck["back_bit_equal"]
+                and ck["one_step"] == ck["back_step"] == ck["step"] == 1 + TP_STEPS):
+            fail(f"[tp_ranks] rank {r}: the checkpoint did not restore bit-equal: {ck}")
+        if not all(np.isfinite(v) for v in t["valid"].values()) or t["valid"] != t0["valid"]:
+            fail(f"[tp_ranks] validation losses not finite or not equal on the ranks: "
+                 f"{t['valid']} vs {t0['valid']}")
+    loss_err = {k: abs(t0["first"]["metrics"][k] - v) / max(abs(v), 1e-12)
+                for k, v in one_step["metrics"].items()}
+    grad_err = {k: abs(t0["first"]["grads"][k] - v) / max(abs(v), 1e-12)
+                for k, v in one_step["grads"].items()}
+    worst_loss = max(loss_err.items(), key=lambda kv: kv[1])
+    worst_grad = max(grad_err.items(), key=lambda kv: kv[1])
+    one_med = float(np.median(one_ms))
+    log(f"[tp_ranks] one train step, batch {DP_GLOBAL_B} x {int(batch['tokens'].shape[1])} tokens "
+        f"x {int(batch['mel'].shape[1])} frames, f32, dropout off: models split over "
+        f"{TP_RANKS} ranks ({backend}) vs one device from the same seeded state: worst loss rel "
+        f"err {worst_loss[1]:.2e} ({worst_loss[0]}; tol {TOL_TRAIN_LOSS}), worst grad-norm rel "
+        f"err {worst_grad[1]:.2e} ({worst_grad[0]}; tol {TOL_TRAIN_GRAD}); {TP_STEPS} more "
+        f"steps: {t0['median_ms']:.1f} / {ranks[1]['train']['median_ms']:.1f} ms on rank 0 / 1 "
+        f"vs {one_med:.1f} ms one device (median wall ms); collectives per step on each rank: "
+        f"{_collectives_str(t0['collectives_step'])}; peak memory above the resident state "
+        + ", ".join(f"{rk['train']['peak_bytes'] / gib:.2f}" for rk in ranks)
+        + f" GiB per rank; kernel launches in the steps {t0['launches_steps']}; validation "
+        f"through the kernels {t0['valid_ms']:.0f} ms, launches {t0['launches_valid']} on each "
+        f"rank, mel_l1 {t0['valid']['mel_l1']:.4f} on both; the checkpoint of step "
+        f"{t0['checkpoint']['step']} ({t0['checkpoint']['n_params']} parameters) bit-equal in a "
+        f"one-device trainer and back in the ranks; {ranks_s:.1f} s the ranks (start-up "
+        f"included)")
+    if not (worst_loss[1] <= TOL_TRAIN_LOSS and worst_grad[1] <= TOL_TRAIN_GRAD):
+        fail(f"[tp_ranks] ranks and one device disagree: {loss_err} {grad_err}")
+    out["train"] = dict(one=one_step, one_ms=one_ms, loss_rel_err=loss_err,
+                        grad_rel_err=grad_err, ranks=[rk["train"] for rk in ranks])
+    report["tp_ranks"] = out
+    launches = {name: sum(rk["serve"][dn]["launches"][name] for rk in ranks
+                          for dn in ("f32", "bf16"))
+                + sum(rk["train"]["launches_valid"][name] for rk in ranks)
+                for name in ("fused_residual_unit", "fused_mrf_stage")}
+    path = _merge_paths(*(p for rk in ranks for p in (rk["path"], rk["train"]["path"])))
+    return dict(launches=launches, launches_steps=t0["launches_steps"], path=path)
+
+
+# ---------------------------------------------------------------------------
 # 11. style-encoder pretraining
 # ---------------------------------------------------------------------------
 
@@ -2838,6 +3336,8 @@ def main() -> None:
                         "[serve], the [train] step in each dtype)")
     if "--dp-worker" in sys.argv:  # one rank of [dp_train], started by phase_dp_train
         return dp_worker(sys.argv[1:])
+    if "--tp-worker" in sys.argv:  # one rank of [tp_ranks], started by phase_tp_ranks
+        return tp_worker(sys.argv[1:])
     args = p.parse_args()
     card = phase_device()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2856,6 +3356,7 @@ def main() -> None:
     curves_out = phase_train_curves(dev)
     dp_train_out = phase_dp_train(dev)
     tp_train_out = phase_tp_train(dev)
+    tp_ranks_out = phase_tp_ranks(dev, cfg, vocab, model)
     phase_style_pretrain(dev)
     phase_fallback(dev)
     corpus_out = phase_corpus(dev)
@@ -2864,7 +3365,7 @@ def main() -> None:
 
     kernels = []
     paths = [main_out["path"], serve_out["path"], train_out["path"], dp_serve_out["path"],
-             tp_serve_out["path"],
+             tp_serve_out["path"], tp_ranks_out["path"],
              curves_out["paths"]["f32"], curves_out["paths"]["bf16"], corpus_out["path"],
              sweep_out["path"], tools_out["path"]]
     src = {"fused_residual_unit": ("emotivoice_tpu_torch/csrc/resblock.cu",
@@ -2884,6 +3385,9 @@ def main() -> None:
             launches_dp_train_steps=dp_train_out["launches_steps"][name],
             launches_tp_serve=tp_serve_out["launches"][name],
             launches_tp_train_steps=tp_train_out["launches_steps"][name],
+            # both ranks: the engine's two counted generator calls and validation's one
+            launches_tp_ranks=tp_ranks_out["launches"][name],
+            launches_tp_ranks_train_steps=tp_ranks_out["launches_steps"][name],
             launches_train_curve_validation_f32=curves_out["launches"]["f32"][name],
             launches_train_curve_validation_bf16=curves_out["launches"]["bf16"][name],
             launches_corpus=corpus_out["launches"][name],
@@ -2914,6 +3418,7 @@ def main() -> None:
             # both dtypes (two replicas), bf16 (validation of the bf16 run)
             max_rel_err_dp_serve=dp_serve_out["path"]["worst_rel"][name],
             max_rel_err_tp_serve=tp_serve_out["path"]["worst_rel"][name],
+            max_rel_err_tp_ranks=tp_ranks_out["path"]["worst_rel"][name],
             max_rel_err_train_bf16=curves_out["paths"]["bf16"]["worst_rel"][name],
         ))
     report["kernels"] = kernels

@@ -40,7 +40,7 @@ from emotivoice_tpu_torch.ops.cuda.resblock import fused_residual_unit, lrelu
 from emotivoice_tpu_torch.parallel.tensor_parallel import (
     ColumnParallel,
     RowParallel,
-    broadcast,
+    as_group,
     conv1d,
     conv_transpose1d,
 )
@@ -152,17 +152,18 @@ class ParallelResBlock1(ResBlock1):
     """ResBlock1 over a model group (`parallel/tensor_parallel.py`): convs1
     column-parallel, convs2 row-parallel, parameters split at rest. With
     `kernels=False` (training) each unit runs both halves on the shards and
-    reduces once, before the residual add. With `kernels=True` (serving)
-    the folded unit weights are gathered whole to `devices[0]` on every call
-    and the MRF kernels run there on whole weights, as the JAX package's
-    `pallas_call` does under a model axis."""
+    reduces once, before the residual add. With `kernels=True` (serving,
+    validation) the folded unit weights are gathered whole on every call,
+    to the group's first device or, over ranks, to every rank (whose
+    activations are replicated), and the MRF kernels run there on whole
+    weights, as the JAX package's `pallas_call` does under a model axis."""
 
-    def __init__(self, block: ResBlock1, devices):
+    def __init__(self, block: ResBlock1, group):
         nn.Module.__init__(self)
         self.kernel_size, self.dilations = block.kernel_size, block.dilations
-        self.devices = list(devices)
-        self.convs1 = nn.ModuleList(ColumnParallel(c, self.devices) for c in block.convs1)
-        self.convs2 = nn.ModuleList(RowParallel(c, self.devices) for c in block.convs2)
+        self.group = as_group(group)
+        self.convs1 = nn.ModuleList(ColumnParallel(c, self.group) for c in block.convs1)
+        self.convs2 = nn.ModuleList(RowParallel(c, self.group) for c in block.convs2)
 
     def unit_weights(self, dtype: torch.dtype):
         return tuple(
@@ -175,7 +176,7 @@ class ParallelResBlock1(ResBlock1):
         if kernels:
             return super().forward(x, kernels)
         for c1, c2 in zip(self.convs1, self.convs2):
-            hidden = c1.forward_shards(broadcast(lrelu(x), self.devices))
+            hidden = c1.forward_shards(self.group.enter(lrelu(x)))
             x = x + c2.forward_partials([lrelu(h) for h in hidden])
         return x
 

@@ -31,7 +31,7 @@ from torch import nn
 from emotivoice_tpu_torch.parallel.tensor_parallel import (
     ColumnParallel,
     RowParallel,
-    broadcast,
+    as_group,
     conv1d,
 )
 from emotivoice_tpu_torch.utils.masks import NEG_INF
@@ -162,21 +162,21 @@ class HeadParallelAttention(nn.Module):
     Each shard draws its own dropout masks, so it equals the one-device
     module only with dropout off (as the tests run it)."""
 
-    def __init__(self, attn: MultiHeadedAttention, devices):
+    def __init__(self, attn: MultiHeadedAttention, group):
         super().__init__()
-        self.devices = list(devices)
-        self.n_heads = attn.n_heads // len(self.devices)  # per shard
+        self.group = as_group(group)
+        self.n_heads = attn.n_heads // self.group.size  # per shard
         self.dropout = attn.dropout
-        self.linear_q = ColumnParallel(attn.linear_q, self.devices)
-        self.linear_k = ColumnParallel(attn.linear_k, self.devices)
-        self.linear_v = ColumnParallel(attn.linear_v, self.devices)
-        self.linear_out = RowParallel(attn.linear_out, self.devices)
+        self.linear_q = ColumnParallel(attn.linear_q, self.group)
+        self.linear_k = ColumnParallel(attn.linear_k, self.group)
+        self.linear_v = ColumnParallel(attn.linear_v, self.group)
+        self.linear_out = RowParallel(attn.linear_out, self.group)
 
     def forward(self, x: torch.Tensor, valid_mask: Optional[torch.Tensor]) -> torch.Tensor:
-        xs = broadcast(x, self.devices)
+        xs = self.group.enter(x)
         q, k, v = (lin.forward_shards(xs) for lin in (self.linear_q, self.linear_k, self.linear_v))
         heads = [attend(*qkv, m, self.n_heads, self.dropout)
-                 for *qkv, m in zip(q, k, v, broadcast(valid_mask, self.devices))]
+                 for *qkv, m in zip(q, k, v, self.group.enter(valid_mask))]
         return self.linear_out.forward_partials(heads)
 
 
@@ -197,15 +197,15 @@ class ParallelConvFFN(nn.Module):
     """ConvFFN over a model group: w_1 column-parallel, w_2 row-parallel,
     reduced once; GELU and dropout per shard (own masks, as above)."""
 
-    def __init__(self, ffn: ConvFFN, devices):
+    def __init__(self, ffn: ConvFFN, group):
         super().__init__()
-        self.devices = list(devices)
-        self.w_1 = ColumnParallel(ffn.w_1, self.devices)
-        self.w_2 = RowParallel(ffn.w_2, self.devices)
+        self.group = as_group(group)
+        self.w_1 = ColumnParallel(ffn.w_1, self.group)
+        self.w_2 = RowParallel(ffn.w_2, self.group)
         self.dropout = ffn.dropout
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        hidden = self.w_1.forward_shards(broadcast(x, self.devices))
+        hidden = self.w_1.forward_shards(self.group.enter(x))
         return self.w_2.forward_partials(
             [self.dropout(F.gelu(h, approximate="none")) for h in hidden])
 

@@ -9,6 +9,13 @@ the all-reduces the global batch's masked means and metrics need, and the
 agreement on how many steps an epoch has. One rank (`world == 1`, no
 process group) makes every method a no-op, so single-device code runs the
 same lines.
+
+The group is the world by default. Over a (data, model) mesh of ranks
+(`mesh.make_rank_mesh`) it is this rank's data group: the ranks that hold
+the same shard of tensor-parallel models (`tensor_parallel.RankGroup`),
+each with other rows, and `rank` / `world` are the data index and the
+data axis's size. Ranks of one model group then read the same rows and
+take the same steps.
 """
 
 from __future__ import annotations
@@ -33,16 +40,20 @@ def _by_device(tensors: Iterable[torch.Tensor]) -> List[List[torch.Tensor]]:
 class DataParallel:
     """This rank's place in the data-parallel group: `rank` of `world`,
     collectives on `device` (NCCL needs CUDA tensors; gloo takes CUDA or CPU
-    tensors and stages CUDA ones through the host)."""
+    tensors and stages CUDA ones through the host) over `group` (a
+    `torch.distributed` group; None: the world)."""
 
     def __init__(self, rank: int = 0, world: int = 1,
-                 device: Union[str, torch.device] = "cpu"):
+                 device: Union[str, torch.device] = "cpu", group=None):
         if not 0 <= rank < world:
             raise ValueError(f"rank {rank} is outside a world of {world}")
         if world > 1 and not dist.is_initialized():
             raise RuntimeError("a data-parallel group of several ranks needs the process "
                                "group (parallel.multihost.initialize_multihost)")
         self.rank, self.world, self.device = rank, world, torch.device(device)
+        self.group = group
+        # the group's first rank, by its rank in the world (broadcast's src)
+        self.first = dist.get_global_rank(group, 0) if group is not None else 0
 
     @classmethod
     def from_process_group(cls, device: Union[str, torch.device] = "cpu") -> "DataParallel":
@@ -50,6 +61,12 @@ class DataParallel:
         if dist.is_available() and dist.is_initialized():
             return cls(dist.get_rank(), dist.get_world_size(), device)
         return cls(device=device)
+
+    @classmethod
+    def from_mesh(cls, mesh, device: Union[str, torch.device] = "cpu") -> "DataParallel":
+        """The data group of a `mesh.RankMesh` (this rank's data index of
+        the data axis)."""
+        return cls(mesh.data_index, mesh.n_data, device, mesh.data_group)
 
     def is_main(self) -> bool:
         """Rank 0: the one that logs, validates and writes checkpoints."""
@@ -71,7 +88,7 @@ class DataParallel:
     def all_reduce_sum(self, t: torch.Tensor) -> torch.Tensor:
         """Sum over the ranks, in place; returns `t`."""
         if self.world > 1:
-            dist.all_reduce(t, op=dist.ReduceOp.SUM)
+            dist.all_reduce(t, op=dist.ReduceOp.SUM, group=self.group)
         return t
 
     def _flat_collective(self, tensors: List[torch.Tensor], op, scale: float = 1.0) -> None:
@@ -100,8 +117,9 @@ class DataParallel:
         if self.world == 1:
             return
         grads = [p.grad for p in params if p.grad is not None]
-        self._flat_collective(grads, lambda b: dist.all_reduce(b, op=dist.ReduceOp.SUM),
-                              scale=self.world)
+        self._flat_collective(
+            grads, lambda b: dist.all_reduce(b, op=dist.ReduceOp.SUM, group=self.group),
+            scale=self.world)
 
     def mean_metrics(self, metrics: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """Scalar metrics averaged over the ranks (one all-reduce)."""
@@ -109,18 +127,19 @@ class DataParallel:
             return metrics
         keys = sorted(metrics)
         flat = torch.stack([metrics[k].float().reshape(()) for k in keys])
-        dist.all_reduce(flat, op=dist.ReduceOp.SUM)
+        dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=self.group)
         flat /= self.world
         return dict(zip(keys, flat.unbind()))
 
     def broadcast_module(self, module: torch.nn.Module) -> None:
-        """Rank 0's parameters and buffers on every rank (one broadcast of
-        one flat buffer per device), as DistributedDataParallel does at its
-        start."""
+        """The group's first rank's parameters and buffers on every rank
+        (one broadcast of one flat buffer per device), as
+        DistributedDataParallel does at its start."""
         if self.world == 1:
             return
         tensors = [t.data for t in list(module.parameters()) + list(module.buffers())]
-        self._flat_collective(tensors, lambda b: dist.broadcast(b, src=0))
+        self._flat_collective(tensors,
+                              lambda b: dist.broadcast(b, src=self.first, group=self.group))
 
     def agreed(self, batches: Iterable,
                widths: Optional[Callable[[Any], Sequence[int]]] = None,
@@ -155,7 +174,7 @@ class DataParallel:
             msg[0] = int(batch is None)
             msg[1:1 + len(sizes)] = torch.tensor(sizes, dtype=torch.int64)
             msg = msg.to(self.device)
-            dist.all_reduce(msg, op=dist.ReduceOp.MAX)
+            dist.all_reduce(msg, op=dist.ReduceOp.MAX, group=self.group)
             if int(msg[0]):
                 return
             agreed = [int(v) for v in msg[1:1 + len(sizes)]]

@@ -20,7 +20,10 @@ process, as the JAX server does: each joins the process group of the
 torchrun environment (RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR,
 MASTER_PORT), holds a full replica on cuda:LOCAL_RANK (or `--device`) and
 answers on its own `--port`, behind a load balancer; requests never cross
-processes, so neither flag above goes with it.
+processes, so neither flag above goes with it. A model split over the
+ranks of several processes (`SynthesisEngine(model_group=RankGroup(...))`)
+needs every rank of its group to make the same calls; it is served through
+that API, not by this server.
 """
 
 from __future__ import annotations
@@ -74,7 +77,10 @@ def main(argv=None):
         p.error("--data-parallel and --multihost: one server per process holds one replica")
     if args.model_parallel > 1 and args.multihost:
         p.error("--model-parallel and --multihost: one server per process holds its own "
-                "whole replica on its own card")
+                "whole replica on its own card, as the JAX server's one server per host does; "
+                "a model split over the ranks of several processes is served through the API "
+                "(parallel.mesh.make_rank_mesh, parallel.tensor_parallel.RankGroup, "
+                "SynthesisEngine(model_group=...)), every rank of the group making the same calls")
     if n_devices > 1 and args.device and torch.device(args.device).index is not None:
         p.error("--data-parallel / --model-parallel place the model on cuda:0..N-1; "
                 "name no card index")

@@ -1,6 +1,7 @@
 """Batched synthesis engine: phoneme ids -> waveform with static-shape
-bucketing, on one device, on data-parallel replicas, or on replicas that
-are each split over a model group of devices (counterpart of
+bucketing, on one device, on data-parallel replicas, on replicas that are
+each split over a model group of devices, or on one replica split over the
+ranks of a model group, one shard per process (counterpart of
 `emotivoice_tpu/serving/engine.py` and its mesh's 'data' and 'model' axes).
 
 Requests are padded into (batch, text, mel) buckets from fixed ladders, so
@@ -27,7 +28,7 @@ from emotivoice_tpu_torch.config import EmotiVoiceConfig
 from emotivoice_tpu_torch.frontend.tokens import TokenVocab
 from emotivoice_tpu_torch.models.jets import JETSGenerator
 from emotivoice_tpu_torch.parallel.mesh import make_mesh, split_rows
-from emotivoice_tpu_torch.parallel.tensor_parallel import tensor_parallel
+from emotivoice_tpu_torch.parallel.tensor_parallel import RankGroup, tensor_parallel
 from emotivoice_tpu_torch.utils.device import resolve_device, resolve_dtype
 
 DEFAULT_TEXT_BUCKETS = (16, 32, 48, 64, 96, 128, 192, 256)
@@ -73,8 +74,17 @@ class SynthesisEngine:
     and each replica is split over its group (`parallel.tensor_parallel`:
     vocoder channels and attention heads; the MRF kernels run on whole
     weights gathered to the group's first device); its rows enter and its
-    waveform leaves there. `dtype` is the compute dtype ('f32' / 'bf16' or a
-    torch dtype); parameters stay f32 and the waveform comes back f32.
+    waveform leaves there. With `model_group` (a `parallel.tensor_parallel.
+    RankGroup`, instead of `device` / `devices`) the one replica is split
+    over the ranks of the group, this process holding its shard on the
+    group's device: every rank of the group makes the same calls with the
+    same requests, as JAX's multi-controller runtime runs one program on
+    every process, and each returns the same result. The ranks take the
+    group's first rank's frame counts, so they choose the same mel buckets
+    and redispatches even where their predicted durations would differ
+    (one rank alone in a collective would wait there until the timeout).
+    `dtype` is the compute dtype ('f32' / 'bf16' or a torch dtype);
+    parameters stay f32 and the waveform comes back f32.
 
     `run` is serialized: it holds one lock for the whole model call, so
     callers on several threads (the batcher's worker, the warmup daemon,
@@ -95,19 +105,29 @@ class SynthesisEngine:
         device: Optional[Union[str, torch.device]] = None,
         devices: Optional[Sequence[Union[str, torch.device]]] = None,
         model_parallel: int = 1,
+        model_group: Optional[RankGroup] = None,
     ):
         if devices is not None and device is not None:
             raise ValueError("pass device (one replica) or devices (one replica each), not both")
         if devices is not None and not devices:
             raise ValueError("devices must name at least one device")
-        self.devices = [resolve_device(d) for d in (devices or [device])]
+        if model_group is not None and (devices is not None or device is not None
+                                        or model_parallel != 1):
+            raise ValueError("model_group places the replica itself: pass no device, "
+                             "devices or model_parallel with it")
+        self.model_group = model_group
+        if model_group is not None:
+            self.devices = [model_group.home]
+            self.groups = [self.devices]
+        else:
+            self.devices = [resolve_device(d) for d in (devices or [device])]
+            self.groups = make_mesh(self.devices, model_parallel)
         self.device = self.devices[0]
-        self.groups = make_mesh(self.devices, model_parallel)
         self.dtype = resolve_dtype(dtype)
         self.cfg = cfg
         copies = [copy.deepcopy(model) for _ in self.groups[1:]]
-        self.replicas = [tensor_parallel(m, g).eval()
-                         for m, g in zip([model] + copies, self.groups)]
+        self.replicas = [tensor_parallel(m, g).eval() for m, g in
+                         zip([model] + copies, [model_group] if model_group else self.groups)]
         self.model = self.replicas[0]
         self.vocab = vocab
         self.text_buckets = tuple(text_buckets)
@@ -162,8 +182,10 @@ class SynthesisEngine:
                 torch.as_tensor(content, dtype=torch.float32, device=dev),
                 max_frames=max_frames, alpha=float(alpha), dtype=self.dtype,
             )
-            return (out["wav_predictions"].cpu().numpy(),
-                    out["output_lengths"].cpu().numpy())
+            n_frames = out["output_lengths"]
+            if self.model_group is not None:
+                n_frames = self.model_group.broadcast(n_frames.contiguous())
+            return out["wav_predictions"].cpu().numpy(), n_frames.cpu().numpy()
 
     def run(self, tokens, lengths, speaker, style, content, max_frames: int,
             alpha: float) -> Tuple[np.ndarray, np.ndarray]:

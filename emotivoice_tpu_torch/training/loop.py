@@ -12,8 +12,12 @@ Checkpoints are `torch.save` files in the reference's layout, in
 The newest complete pair is resumed; `max_to_keep` pairs are kept. One
 process drives one device. Over several processes (`dp`, one rank each)
 every rank restores and steps on its own rows, and only rank 0 logs,
-validates and writes checkpoints. The JAX loop's validation pass before the
-first step is not ported: it exists there to compile the eval shapes.
+validates and writes checkpoints. With models split over the ranks of
+model groups (`tensor_parallel.RankGroup`, `dp` the data group of the
+mesh) the ranks of the first data index (model group 0) validate and
+gather the checkpoints' state together, and the world's rank 0 alone
+writes. The JAX loop's validation pass before the first step is not
+ported: it exists there to compile the eval shapes.
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ from typing import Callable, Dict, Iterable, Optional, Tuple, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from emotivoice_tpu_torch.config import EmotiVoiceConfig
 from emotivoice_tpu_torch.models.discriminator import Discriminator
@@ -92,16 +97,21 @@ class CheckpointManager:
         steps = self.steps()
         return steps[-1] if steps else None
 
-    def save(self, trainer: TrainStep) -> None:
+    def save(self, trainer: TrainStep, write: bool = True) -> None:
+        """The trainer's pair at its step, in the one-device layout. Models
+        split over the ranks of a model group gather their state, so every
+        rank of the group calls this, and only one passes `write`."""
         step = trainer.count
         rng = {"torch": torch.get_rng_state()}
         dev = trainer.segment_generator.device
         if dev.type == "cuda":
             rng["cuda"] = torch.cuda.get_rng_state(dev)
-        torch.save({"generator": trainer.model.state_dict(), "iteration": step},
-                   self._path("g", step))
-        torch.save({"discriminator": trainer.disc.state_dict(), **trainer.state_dict(),
-                    "rng": rng}, self._path("do", step))
+        g = {"generator": trainer.model.state_dict(), "iteration": step}
+        do = {"discriminator": trainer.disc.state_dict(), **trainer.state_dict(), "rng": rng}
+        if not write:
+            return
+        torch.save(g, self._path("g", step))
+        torch.save(do, self._path("do", step))
         for old in self.steps()[:-self.max_to_keep]:
             for kind in ("g", "do"):
                 os.remove(self._path(kind, old))
@@ -190,24 +200,29 @@ def train(
       initialised process group's, else one rank. `batch_iter_fn` then
       yields this rank's batches; every rank runs the same number of
       steps per epoch, each step's batches padded to one shape
-      (`DataParallel.agreed`).
+      (`DataParallel.agreed`). Over a (data, model) mesh of ranks, `dp` is
+      the rank's data group (`DataParallel.from_mesh`), `models` are split
+      over its model group (`tensor_parallel.RankGroup`), and the ranks of
+      a model group are given the same batches.
     Returns the TrainStep (models, optimizers, update count)."""
     device = resolve_device(device)
     use_exact_f32(dtype)
     dp = dp if dp is not None else DataParallel.from_process_group(device)
-    main = dp.is_main()
+    main = dp.is_main()  # over a (data, model) mesh: every rank of model group 0
+    world_rank = dist.get_rank() if dist.is_available() and dist.is_initialized() else 0
+    writer = main and world_rank == 0
     torch.manual_seed(cfg.train.seed)  # the same dropout stream on every rank
-    logger = MetricLogger(os.path.join(output_dir, "log")) if main else None
+    logger = MetricLogger(os.path.join(output_dir, "log")) if writer else None
     ckpts = CheckpointManager(os.path.join(output_dir, "ckpt"))
     model, disc = models if models is not None else build_models(cfg, device, dtype)
     trainer = TrainStep(cfg, model, disc, steps_per_epoch, dtype, dp)
     restored = ckpts.restore(trainer)
     if restored is not None:
-        if main:
+        if writer:
             print(f"resumed from step {restored}", flush=True)
     elif warm_start_fn is not None:
         warm_start_fn(trainer)
-        if main:
+        if writer:
             print("warm-started from pretrained checkpoint", flush=True)
 
     if main and validate_fn is None and valid_batch_iter_fn is not None:
@@ -227,7 +242,7 @@ def train(
             seen = True
             metrics = trainer(to_device(batch, device))
             step = trainer.count
-            if main and step % log_every == 0:
+            if writer and step % log_every == 0:
                 metrics = {k: float(v) for k, v in metrics.items()}
                 metrics["lr"] = learning_rate(cfg, step, steps_per_epoch)
                 metrics["epoch"] = step // steps_per_epoch
@@ -240,7 +255,7 @@ def train(
                 t_paused += time.time() - t0
             if main and step % t.iters_per_checkpoint == 0:
                 t0 = time.time()
-                ckpts.save(trainer)
+                ckpts.save(trainer, write=writer)
                 t_paused += time.time() - t0
             if step >= total_steps:
                 break
@@ -248,5 +263,5 @@ def train(
             raise ValueError("the training loader yielded no batch (fewer utterances "
                              "than one batch per bucket?)")
     if main:
-        ckpts.save(trainer)
+        ckpts.save(trainer, write=writer)
     return trainer

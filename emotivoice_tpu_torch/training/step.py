@@ -35,13 +35,21 @@ batch from the shared seeded generator. Spectral-norm u, v follow D's
 weights only, so they stay equal on every rank.
 
 The models may be tensor-parallel (`parallel.tensor_parallel`; the JAX
-`make_parallel_train_step(state=...)` over a 'model' axis): the optimizers
-then hold the parameters' parts, which is exact for Adam (elementwise),
-and a parameter held whole on `devices[0]` gets its whole gradient from
-autograd through the collectives, so no gradient needs a reduction across
-shards. `state_dict()` gathers Adam's moments into the
-one-device layout, as the models' own state dicts do, so a checkpoint
-resumes in either layout.
+`make_parallel_train_step(state=...)` over a 'model' axis), over a model
+group of devices in this process or over the ranks of a model group, one
+shard per process (`RankGroup`; then `dp` is the rank's data group of the
+(data, model) mesh, `mesh.make_rank_mesh` / `DataParallel.from_mesh`, and
+every rank of a model group calls the step on the same rows). The
+optimizers then hold the parameters' parts, which is exact for Adam
+(elementwise), and a parameter held whole gets its whole gradient from
+autograd through the collectives (over ranks: on every rank of the group),
+so no gradient needs a reduction across shards; over ranks the copies of
+a whole parameter's gradient are averaged over the group
+(`mean_replicated_grads`), which keeps the ranks' copies equal where a
+card's backward rounds differently on each. `state_dict()` gathers
+Adam's moments into the one-device layout, as the models' own state dicts
+do (over ranks, every rank of the group calls it), so a checkpoint resumes
+in either layout.
 """
 
 from __future__ import annotations
@@ -62,6 +70,7 @@ from emotivoice_tpu_torch.ops.segments import get_segments, random_starts
 from emotivoice_tpu_torch.parallel.data_parallel import DataParallel
 from emotivoice_tpu_torch.parallel.tensor_parallel import (
     load_optimizer_state_dict,
+    mean_replicated_grads,
     optimizer_state_dict,
 )
 from emotivoice_tpu_torch.training.losses import (
@@ -167,6 +176,7 @@ class TrainStep:
         real, fake, _, _ = self.disc(y, y_hat.detach(), update_stats=True)
         d_loss = discriminator_loss(real, fake)
         d_loss.backward()
+        mean_replicated_grads(self.disc)
         self.dp.mean_grads(self.disc.parameters())
         self._update(self.opt_d)
         return d_loss.detach()
@@ -196,6 +206,7 @@ class TrainStep:
             total.backward()
         finally:
             self.disc.requires_grad_(True)
+        mean_replicated_grads(self.model)
         self.dp.mean_grads(self.model.parameters())
         self._update(self.opt_g)
         metrics = {"mel_loss": mel_loss, "adv_loss": adv, "fm_loss": fm, **pros, **align,

@@ -5,7 +5,9 @@
 The eval step runs under `torch.inference_mode()` with `cut=False` (the
 whole decoded mel is vocoded) and with the generator's kernels switched on,
 so validation launches both MRF kernels on the card: 18 + 2 per generator
-call at the V1 topology.
+call at the V1 topology. A model split over the ranks of a model group
+validates on every rank of the group (each runs both kernels on the
+gathered whole weights); only the rank given a logger writes.
 """
 
 from __future__ import annotations
@@ -64,9 +66,11 @@ def make_validate_fn(cfg, model, valid_batches: Callable[[], Iterable[Dict[str, 
     in bf16 both kernels run in bf16), logged with prefix
     "valid"; the first item's wav written beside the text log; the audio to
     tensorboard when the logger has it, the mel figure too when matplotlib
-    is installed."""
+    is installed. With `logger` None the pass runs and nothing is written
+    (a rank of a model group that does not write); it returns the mean
+    losses either way."""
 
-    def validate(step: int) -> None:
+    def validate(step: int) -> Dict[str, float]:
         gen = model.generator
         kernels, training = gen.kernels, model.training
         gen.kernels = True
@@ -88,9 +92,10 @@ def make_validate_fn(cfg, model, valid_batches: Callable[[], Iterable[Dict[str, 
         finally:
             gen.kernels = kernels
             model.train(training)
-        if n == 0:
-            return
-        logger.log(step, {k: v / n for k, v in agg.items()}, prefix="valid")
+        means = {k: v / n for k, v in agg.items()}
+        if n == 0 or logger is None:
+            return means
+        logger.log(step, means, prefix="valid")
         gt, pred, wav = sample
         write_wav(os.path.join(os.path.dirname(logger.text_path), f"valid_audio_{step:08d}.wav"),
                   np.clip(wav.astype(np.float32), -1.0, 1.0), cfg.audio.sampling_rate)
@@ -99,5 +104,6 @@ def make_validate_fn(cfg, model, valid_batches: Callable[[], Iterable[Dict[str, 
                 logger.tb.add_figure("valid/mel_comparison", plot_mel_comparison(gt, pred), step)
             logger.tb.add_audio("valid/audio_predicted", wav[None, :], step,
                                 sample_rate=cfg.audio.sampling_rate)
+        return means
 
     return validate

@@ -562,17 +562,23 @@ def test_serve_cli_needs_a_card():
     assert "no CUDA device is available" in res.stderr
 
 
-def test_serve_cli_rejects_the_parallel_flags():
+def test_serve_cli_rejects_the_parallel_flags(capsys):
     """The JAX server's flags the port has no counterpart of, and the
-    data-parallel ones in combinations it refuses."""
+    data-parallel ones in combinations it refuses; the refusal of a model
+    split over processes points to the API that serves one."""
     from emotivoice_tpu_torch import serve
 
     for flags in (["--model-parallel=2", "--multihost", "--device", "cpu"],
                   ["--use-pallas", "--device", "cpu"],
                   ["--data-parallel=2", "--multihost", "--device", "cpu"],
                   ["--data-parallel=2", "--device", "cuda:1"]):
+        capsys.readouterr()
         with pytest.raises(SystemExit):
             serve.main(flags)
+        if "--multihost" in flags and "--model-parallel=2" in flags:
+            err = capsys.readouterr().err
+            assert "--model-parallel and --multihost" in err
+            assert "SynthesisEngine(model_group=" in err and "make_rank_mesh" in err
 
 
 def test_serve_cli_serves_on_the_cpu(monkeypatch):

@@ -628,7 +628,7 @@ def test_mean_grads_keeps_one_buffer_per_device(monkeypatch):
 
     reduced = []
 
-    def all_reduce(t, op=None):
+    def all_reduce(t, op=None, group=None):
         reduced.append(t.numel())
         t.mul_(2)  # two ranks with equal gradients
 
