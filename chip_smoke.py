@@ -6,14 +6,17 @@
 Phases (any failure exits non-zero and prints no result line):
   1. device   - require a CUDA card; print its name and power limit;
   2. build    - compile the port's kernels from emotivoice_tpu_torch/csrc
-                with nvcc for sm_90a; count the tensor-core instructions
-                (HMMA / HGMMA; TF32 products show as HMMA.1688.F32.TF32) of
-                each kernel instantiation in the SASS (cuobjdump) and fail
-                if one, bf16 or f32, has none;
+                with nvcc for sm_90a; count the tensor-core and TMA
+                instructions of each kernel instantiation in the SASS
+                (cuobjdump): fail if a bf16 one has no HMMA / HGMMA, or an
+                f32 one (the wgmma core) lacks HGMMA or UTMALDG or has an
+                HMMA (the mma.sync core it replaced);
   3. kernels  - each kernel against its plain PyTorch version on the card,
                 at the main path's shapes (bench bucket: batch 16, 384 mel
                 frames) and at a ragged T, in f32 (TF32 off) and bf16;
-                times of kernel, plain version and the cuDNN convolutions
+                times of kernel (the wrapper's call; for f32 also the
+                wrapper's K-major weight relayout alone), plain version and
+                the cuDNN convolutions
                 (TF32 off: the same function; for f32 also with cuDNN's TF32
                 on, a less exact function, for context), share of the bound
                 and factor against cuDNN. The f32 bound is that of a 3xTF32
@@ -273,21 +276,43 @@ def phase_device() -> str:
 
 KERNEL_SYMBOL = re.compile(
     r"Function : \S*?(residual_unit_kernel|mrf_stage_kernel)ILi(\d+)E(13__nv_bfloat16|f)E")
+SASS_OPS = ("HMMA", "HGMMA", "UTMALDG")  # mma.sync, wgmma, TMA tile loads
 
 
 def parse_sass_mma(sass: str) -> dict:
-    """Tensor-core instructions (HMMA / HGMMA) per kernel instantiation in a
-    `cuobjdump --dump-sass` listing, keyed (kernel, C, dtype)."""
+    """Tensor-core (HMMA: mma.sync, HGMMA: wgmma) and TMA load (UTMALDG)
+    instructions per kernel instantiation in a `cuobjdump --dump-sass`
+    listing, keyed (kernel, C, dtype)."""
     counts, key = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
             m = KERNEL_SYMBOL.search(line)
             key = (m.group(1), int(m.group(2)), "f32" if m.group(3) == "f" else "bf16") if m else None
             if key:
-                counts[key] = 0
-        elif key and ("HMMA" in line or "HGMMA" in line):
-            counts[key] += 1
+                counts[key] = dict.fromkeys(SASS_OPS, 0)
+        elif key:
+            m = re.search(r"\b(HMMA|HGMMA|UTMALDG)\b", line)
+            if m:
+                counts[key][m.group(1)] += 1
     return counts
+
+
+def sass_faults(counts: dict) -> list:
+    """What [build] refuses: a kernel without instantiations of a dtype; a
+    bf16 instantiation without tensor-core instructions; an f32 one without
+    HGMMA (wgmma) or UTMALDG (TMA), or with HMMA (the mma.sync core)."""
+    faults = []
+    for name in ("residual_unit_kernel", "mrf_stage_kernel"):
+        for dname in ("bf16", "f32"):
+            found = {c: n for (k, c, dn), n in counts.items() if k == name and dn == dname}
+            if not found:
+                faults.append(f"{name}: no {dname} instantiation")
+            for c, n in sorted(found.items()):
+                if dname == "bf16" and not n["HMMA"] + n["HGMMA"]:
+                    faults.append(f"{name}<{c}, bf16>: no tensor-core instructions {n}")
+                if dname == "f32" and (not n["HGMMA"] or not n["UTMALDG"] or n["HMMA"]):
+                    faults.append(f"{name}<{c}, f32>: wants HGMMA and UTMALDG, no HMMA: {n}")
+    return faults
 
 
 def sass_mma_counts(lib_path: str, nvcc: str) -> dict:
@@ -314,13 +339,12 @@ def phase_build() -> None:
             log(f"[build] {line.strip()}")
     counts = sass_mma_counts(os.path.join(build.BUILD_DIR, build.LIB_NAME), build.find_nvcc())
     for (name, c, dname), n in sorted(counts.items()):
-        log(f"[build] SASS {name}<C={c}, {dname}>: {n} HMMA/HGMMA instructions")
+        log(f"[build] SASS {name}<C={c}, {dname}>: "
+            + " ".join(f"{op} {n[op]}" for op in SASS_OPS))
     report["sass_mma"] = {f"{k[0]}/{k[1]}/{k[2]}": v for k, v in sorted(counts.items())}
-    for name in ("residual_unit_kernel", "mrf_stage_kernel"):
-        for dname in ("bf16", "f32"):
-            found = {c: n for (k, c, dn), n in counts.items() if k == name and dn == dname}
-            if not found or not all(found.values()):
-                fail(f"{name}: {dname} instantiation without tensor-core instructions: {found}")
+    faults = sass_faults(counts)
+    if faults:
+        fail("SASS check: " + "; ".join(faults))
 
 
 # ---------------------------------------------------------------------------
@@ -370,8 +394,10 @@ def _f32_context(r) -> str:
 
 
 def phase_kernels(dev) -> dict:
-    from emotivoice_tpu_torch.ops.cuda.mrf_stage import fused_mrf_stage, mrf_stage_plain
-    from emotivoice_tpu_torch.ops.cuda.resblock import fused_residual_unit, residual_unit_plain
+    from emotivoice_tpu_torch.ops.cuda.mrf_stage import (fused_mrf_stage, mrf_stage_plain,
+                                                         pack_stage_f32)
+    from emotivoice_tpu_torch.ops.cuda.resblock import (fused_residual_unit, kmajor,
+                                                        residual_unit_plain)
 
     gen = torch.Generator().manual_seed(SEED)
     t_mel = BENCH_FRAMES
@@ -406,12 +432,16 @@ def phase_kernels(dev) -> dict:
                     xn = x.transpose(1, 2).contiguous()
                     ms = timed(lambda: fused_residual_unit(x, *w, k, d))
                     plain_ms = timed(lambda: residual_unit_plain(x, *w, k, d))
+                    # the f32 wrapper's K-major copy of both weights, part of ms
+                    relayout_ms = (timed(lambda: kmajor((w[0], w[2])))
+                                   if dtype == torch.float32 else 0.0)
                     lib_ms, lib_tf32_ms = _timed_cudnn(
                         lambda: (_conv_ncw(xn, w1t, w[1], d), _conv_ncw(xn, w2t, w[3], 1)), dtype)
                     flop = 4 * k * c * c * BENCH_B * t
                     nbytes = item * (2 * BENCH_B * t * c + 2 * k * c * c + 2 * c)
                     rows.append(dict(kernel="fused_residual_unit", dtype=dname, C=c, T=t,
                                      k=k, d=d, err=err, ms=ms, plain_ms=plain_ms,
+                                     relayout_ms=relayout_ms,
                                      library_ms=lib_ms, library_tf32_ms=lib_tf32_ms,
                                      flop=flop, bytes=nbytes))
         # kernel 2: stages 3-4 of the bench bucket, whole MRF
@@ -441,13 +471,15 @@ def phase_kernels(dev) -> dict:
 
             ms = timed(lambda: fused_mrf_stage(x, ws, V1_KS, V1_DS))
             plain_ms = timed(lambda: mrf_stage_plain(x, ws, V1_KS, V1_DS))
+            relayout_ms = timed(lambda: pack_stage_f32(ws)) if dtype == torch.float32 else 0.0
             lib_ms, lib_tf32_ms = _timed_cudnn(lib_stage, dtype)
             flop = sum(4 * k * c * c * len(dils) for k, dils in zip(V1_KS, V1_DS)) * BENCH_B * t
             nbytes = item * (2 * BENCH_B * t * c
                              + sum(2 * k * c * c + 2 * c for k, dils in zip(V1_KS, V1_DS)
                                    for _ in dils))
             rows.append(dict(kernel="fused_mrf_stage", dtype=dname, C=c, T=t, k=None, d=None,
-                             err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                             err=err, ms=ms, plain_ms=plain_ms, relayout_ms=relayout_ms,
+                             library_ms=lib_ms,
                              library_tf32_ms=lib_tf32_ms, flop=flop, bytes=nbytes))
         for r in rows:
             if r["dtype"] == dname:
@@ -460,8 +492,8 @@ def phase_kernels(dev) -> dict:
         key = (r["kernel"], r["dtype"])
         t = totals.setdefault(key, dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
                                         flop=0, bytes=0, calls=0, err=0.0, library_tf32_ms=0.0,
-                                        bound_cuda_cores_ms=0.0))
-        for f in ("ms", "plain_ms", "library_ms", "bound_ms", "flop", "bytes"):
+                                        bound_cuda_cores_ms=0.0, relayout_ms=0.0))
+        for f in ("ms", "plain_ms", "library_ms", "bound_ms", "flop", "bytes", "relayout_ms"):
             t[f] += r[f]
         if r["dtype"] == "f32":
             t["library_tf32_ms"] += r["library_tf32_ms"]
@@ -473,14 +505,16 @@ def phase_kernels(dev) -> dict:
             f"plain_ms={r['plain_ms']:.3f} cudnn_ms={r['library_ms']:.3f} "
             f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) "
             f"bound_share={r['bound_ms'] / r['ms']:.4f} x_cudnn={r['ms'] / r['library_ms']:.2f} "
-            f"TFLOP/s={r['flop'] / r['ms'] / 1e9:.1f}" + _f32_context(r))
+            f"TFLOP/s={r['flop'] / r['ms'] / 1e9:.1f}" + _f32_context(r)
+            + (f" relayout_ms={r['relayout_ms']:.3f}" if r["dtype"] == "f32" else ""))
     for (name, dname), t in totals.items():
         log(f"[kernels] per generator call at the bench bucket: {name} {dname} "
             f"{t['calls']} launches ms={t['ms']:.2f} plain_ms={t['plain_ms']:.2f} "
             f"cudnn_ms={t['library_ms']:.2f} bound_ms={t['bound_ms']:.3f} "
             f"bound_share={t['bound_ms'] / t['ms']:.4f} x_cudnn={t['ms'] / t['library_ms']:.2f} "
             f"TFLOP/s={t['flop'] / t['ms'] / 1e9:.1f} max_rel_err={t['err']:.2e}"
-            + (_f32_context(t) if dname == "f32" else ""))
+            + (_f32_context(t) + f" relayout_ms={t['relayout_ms']:.3f} (of ms; kernel alone "
+               f"{t['ms'] - t['relayout_ms']:.2f})" if dname == "f32" else ""))
     report["kernel_rows"] = rows
     report["kernel_totals"] = {f"{k[0]}/{k[1]}": v for k, v in totals.items()}
     return dict(totals=totals, worst=worst)
@@ -3407,6 +3441,8 @@ def main() -> None:
             bound_cuda_cores_ms_f32=t32["bound_cuda_cores_ms"],
             x_cudnn_f32=t32["ms"] / t32["library_ms"], tflops_f32=t32["flop"] / t32["ms"] / 1e9,
             library_tf32_on_ms_f32=t32["library_tf32_ms"],
+            # the f32 wrapper's K-major weight relayout, part of ms_f32
+            relayout_ms_f32=t32["relayout_ms"],
             # f32 on every path driven in f32: worst |kernel - plain| / max |plain|
             max_rel_err_f32=max(t32["err"], main_out["path"]["worst_rel"][name],
                                 serve_out["path"]["worst_rel"][name],

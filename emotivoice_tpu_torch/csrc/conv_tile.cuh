@@ -11,17 +11,17 @@
 // residual add; no rounding at all when T is float).
 //
 // Both storage types run their convs on the tensor cores, through one
-// implicit-GEMM core each with the same contract: mma_conv() on bf16
-// (mma_conv.cuh, mma.sync m16n8k16) and mma_conv() on float
-// (mma_conv_f32.cuh, mma.sync m16n8k8 on a 3xTF32 split, which keeps f32
-// accuracy). The overload is chosen at compile time by the storage type;
-// there is no other conv loop.
+// implicit-GEMM core each with the same epilogue contract: mma_conv() on
+// bf16 (mma_conv.cuh, mma.sync m16n8k16, cp.async weight ring) and
+// wg_conv() on float (wgmma_conv_f32.cuh, wgmma on a 3xTF32 split, which
+// keeps f32 accuracy, weights by TMA through a producer's mbarrier ring).
+// There is no other conv loop.
 //
-// This header holds what the two cores and the two kernels share: the block
-// shape, the activation tile's layout in shared memory (rows of 16-byte
-// chunks, XOR-swizzled), pairs of adjacent channels as the epilogues see
-// them, the cp.async / ldmatrix wrappers, the weight ring's state and the
-// count dispatch of the chunk loops.
+// This header holds what the kernels share: the bf16 block shape, the bf16
+// activation tile's layout in shared memory (rows of 16-byte chunks,
+// XOR-swizzled), pairs of adjacent channels as the epilogues see them
+// (lrelu2 and add2 serve both types), the cp.async / ldmatrix wrappers, the
+// bf16 weight ring's state and the count dispatch of the chunk loops.
 
 #pragma once
 
@@ -48,12 +48,11 @@ template <int C, typename T> struct MmaCfg;
 
 template <int C, typename T> struct MmaTile : MmaCfg<C, T> {
   using Cfg = MmaCfg<C, T>;
-  // Depth of one mma.sync: k16 on bf16, k8 on tf32.
+  // Depth of one mma.sync: k16 on bf16.
   static constexpr int kStep = 32 / sizeof(T);
-  // Row stride of a ring stage in values of T. bf16 rows are XOR-swizzled for
-  // ldmatrix.trans; f32 rows are padded by 8 words, so the 4 rows x 8 columns
-  // that a warp's 32-bit B loads touch fall in 32 different banks.
-  static constexpr int kLd = std::is_same<T, float>::value ? C + 8 : C;
+  // Row stride of a ring stage in values of T; rows are XOR-swizzled for
+  // ldmatrix.trans.
+  static constexpr int kLd = C;
   static_assert(Cfg::kWN * Cfg::kNT * 8 == C, "warps must tile C_out");
   static_assert(Cfg::kKC % kStep == 0 && Cfg::kStages >= 2, "ring of whole mma steps");
   static constexpr int kWM = kWarps / Cfg::kWN;
@@ -83,15 +82,12 @@ template <int C, typename T> __device__ __forceinline__ int elem_at(int r, int c
 // Channels (co, co + 1), co even, as the cores hand them to an epilogue.
 template <typename T> struct PairOf;
 template <> struct PairOf<bf16> { using type = bf16x2; };
-template <> struct PairOf<float> { using type = float2; };
 
 // The pair at p (aligned to the pair's size).
 __device__ __forceinline__ bf16x2& pair_at(bf16* p) { return *reinterpret_cast<bf16x2*>(p); }
-__device__ __forceinline__ float2& pair_at(float* p) { return *reinterpret_cast<float2*>(p); }
 
 template <typename T> __device__ __forceinline__ typename PairOf<T>::type zero2();
 template <> __device__ __forceinline__ bf16x2 zero2<bf16>() { return __float2bfloat162_rn(0.f); }
-template <> __device__ __forceinline__ float2 zero2<float>() { return make_float2(0.f, 0.f); }
 
 __device__ __forceinline__ float lrelu(float v) { return fmaxf(v, v * kSlope); }
 
@@ -119,21 +115,12 @@ __device__ __forceinline__ void unpack_chunk(const uint4& v, float (&f)[8], bf16
     f[2 * q + 1] = p.y;
   }
 }
-__device__ __forceinline__ void unpack_chunk(const uint4& v, float (&f)[4], float) {
-  const float* p = reinterpret_cast<const float*>(&v);
-#pragma unroll
-  for (int q = 0; q < 4; ++q) f[q] = p[q];
-}
 __device__ __forceinline__ uint4 pack_chunk(const float (&f)[8], bf16) {
   uint4 v;
   bf16x2* h = reinterpret_cast<bf16x2*>(&v);
 #pragma unroll
   for (int q = 0; q < 4; ++q) h[q] = __floats2bfloat162_rn(f[2 * q], f[2 * q + 1]);
   return v;
-}
-__device__ __forceinline__ uint4 pack_chunk(const float (&f)[4], float) {
-  return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]), __float_as_uint(f[2]),
-                    __float_as_uint(f[3]));
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {

@@ -40,10 +40,8 @@
 // The output rows are covered in passes of kPassRows (all warps' m tiles);
 // the weights stream from L2 once per pass.
 //
-// Storage is bf16 only. The f32 instantiation has a core of the same shape
-// and contract in mma_conv_f32.cuh: one TF32 product (10-bit mantissa) would
-// break the f32 path's 2e-4 agreement with its plain version, a 3xTF32 split
-// does not.
+// Storage is bf16 only. The f32 instantiation has its own core of the same
+// epilogue contract in wgmma_conv_f32.cuh (wgmma on a 3xTF32 split).
 
 #pragma once
 

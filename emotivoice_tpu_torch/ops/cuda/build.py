@@ -108,13 +108,15 @@ def build() -> str:
 
 def _declare(lib: ctypes.CDLL) -> None:
     vp, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.evt_residual_unit.argtypes = [vp] * 6 + [i32] * 8 + [vp]
-    lib.evt_residual_unit.restype = i32
-    lib.evt_mrf_stage.argtypes = [
-        vp, vp, ctypes.POINTER(vp), ctypes.POINTER(i32), ctypes.POINTER(i32),
-        ctypes.POINTER(i32), i32, i32, i32, i32, i32, i32, i32, vp,
-    ]
-    lib.evt_mrf_stage.restype = i32
+    pi = ctypes.POINTER(i32)
+    lib.evt_residual_unit_bf16.argtypes = [vp] * 6 + [i32] * 7 + [vp]
+    lib.evt_residual_unit_f32.argtypes = [vp] * 5 + [i32] * 11 + [vp]
+    lib.evt_mrf_stage_bf16.argtypes = [vp, vp, ctypes.POINTER(vp), pi, pi, pi] + [i32] * 6 + [vp]
+    lib.evt_mrf_stage_f32.argtypes = ([vp, vp, vp, i32, ctypes.POINTER(vp), pi, pi, pi, pi, pi]
+                                      + [i32] * 10 + [vp])
+    for fn in (lib.evt_residual_unit_bf16, lib.evt_residual_unit_f32, lib.evt_mrf_stage_bf16,
+               lib.evt_mrf_stage_f32):
+        fn.restype = i32
     lib.evt_error_string.argtypes = [i32]
     lib.evt_error_string.restype = ctypes.c_char_p
 

@@ -8,8 +8,11 @@ chunk plan and weight rolls are not carried over. The kernel is
 bounds it on the H100 (operations: 252*C*C FLOP per row for the V1 stage)
 and what its design does about that (all chains run on one tile in shared
 memory; the tile is read once per chain and written once; every conv runs on
-the tensor cores: bf16 through `csrc/mma_conv.cuh`, f32 as a 3xTF32 split
-through `csrc/mma_conv_f32.cuh`).
+the tensor cores: bf16 through `csrc/mma_conv.cuh` (`mma.sync`), f32 as a
+3xTF32 split through `csrc/wgmma_conv_f32.cuh` (`wgmma`, weights by TMA
+through a producer's ring). For f32 the wrapper packs all the stage's conv
+weights K-major into one buffer, (taps, C_out, C_in), in the order the
+kernel runs them (`pack_stage_f32`).
 
 `fused_mrf_stage` launches the kernel for a CUDA tensor and takes the plain
 version for a CPU tensor; any other device, dtype or shape raises, and so
@@ -19,6 +22,7 @@ does an operand that requires grad while grad is enabled (no backward).
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Sequence, Tuple
 
 import torch
@@ -26,17 +30,27 @@ import torch
 from emotivoice_tpu_torch.ops.cuda import build
 from emotivoice_tpu_torch.ops.cuda.resblock import (
     CHANNELS,
+    H100_SMS,
     SMEM_LIMIT,
+    WG_CFG,
+    WGMMA_ROWS,
+    _cdiv,
+    act_boxes,
     check_operands,
+    f32_ring_stages,
+    f32_stage_bytes,
+    kmajor,
+    pass_rows,
     refuse_grad,
     residual_unit_3xtf32,
     residual_unit_plain,
     ring_rows,
+    sm_count,
     weight_smem,
 )
 
-MAX_TILE = {torch.float32: 512, torch.bfloat16: 768}
-TILE_STEP = 64  # tiles are whole multiples of this many rows (4 m16 tiles)
+MAX_TILE = {torch.float32: 1024, torch.bfloat16: 768}
+TILE_STEP = {torch.float32: 8, torch.bfloat16: 64}  # tiles are whole multiples of this many rows
 MAX_CHAINS = 4  # kMaxChains in csrc/mrf_stage.cu
 MAX_UNITS = 4  # kMaxUnits
 
@@ -75,26 +89,89 @@ def stage_halo(kernel_sizes, dilation_sizes) -> int:
     )
 
 
+def stage_convs(tile: int, kernel_sizes, dilation_sizes):
+    """Output rows of every conv of a tile, in the order the kernels run
+    them: each chain's tile + 2 * its halo shrinks by one unit's reach per
+    unit, conv1 by 2 * (k-1)/2 * d rows, conv2 by 2 * (k-1)/2."""
+    rows = []
+    for k, dils in zip(kernel_sizes, dilation_sizes):
+        ext = tile + 2 * sum((k - 1) // 2 * (d + 1) for d in dils)
+        for d in dils:
+            h1, h2 = (k - 1) // 2 * d, (k - 1) // 2
+            rows += [ext - 2 * h1, ext - 2 * h1 - 2 * h2]
+            ext -= 2 * (h1 + h2)
+    return rows
+
+
+def stage_plan_f32(c: int, halo: int, tile: int):
+    """(box_rows, n_box, stages, smem bytes) of the f32 kernel at `tile`: chain
+    activation and intermediate (haloed), 1 KB of alignment slack, x's
+    mbarrier and the ring. The chain sum stays in y, in device memory."""
+    box, n_box = act_boxes(tile + 2 * halo)
+    other = 1024 + c * 4 * 2 * box * n_box + 8
+    stages = f32_ring_stages(c, other)
+    return box, n_box, stages, other + stages * f32_stage_bytes(c)
+
+
 def stage_smem(c: int, halo: int, tile: int, dtype: torch.dtype) -> int:
-    """Shared memory of one block: chain activation and intermediate (x's
-    dtype, haloed), f32 accumulator, weights."""
-    return dtype.itemsize * c * 2 * (tile + 2 * halo) + 4 * c * tile + weight_smem(c, dtype)
+    """Shared memory of one block. bf16: chain activation and intermediate
+    (haloed), f32 chain sum, weights; f32: `stage_plan_f32`."""
+    if dtype == torch.float32:
+        return stage_plan_f32(c, halo, tile)[3]
+    return dtype.itemsize * c * 2 * (tile + 2 * halo) + 4 * c * tile + weight_smem(c)
 
 
-def stage_tile(c: int, halo: int, t: int, dtype: torch.dtype = torch.float32) -> int:
-    """Largest multiple of TILE_STEP rows (at most MAX_TILE[dtype], at most
-    T rounded up) whose tiles and weights fit in shared memory. At the V1
-    topology every conv of such a tile is one pass of the core's rows."""
+@functools.lru_cache(maxsize=None)
+def stage_tile(c: int, kernel_sizes: Tuple[int, ...], dilation_sizes: Tuple[Tuple[int, ...], ...],
+               t: int, dtype: torch.dtype = torch.float32, batch: int = 1,
+               n_sm: int = H100_SMS) -> int:
+    """Time tile of the kernel, a multiple of TILE_STEP[dtype] rows.
+
+    bf16: the largest (at most MAX_TILE, at most T rounded up) whose tiles
+    and weights fit in shared memory; at the V1 topology every conv of such
+    a tile is one pass of the core's rows. f32: of the tiles up to MAX_TILE
+    that fit beside a ring of at least two stages, the one with the least
+    waves * work, work = per conv (the k=11 chain's first, tile + 110 rows,
+    the largest) its m64 tiles plus one per pass for its weight stream.
+    """
     if c not in CHANNELS:
         raise ValueError(f"no kernel for C={c}; C must be one of {CHANNELS}")
     if dtype not in MAX_TILE:
         raise TypeError(f"no kernel for {dtype}")
-    tile = min(MAX_TILE[dtype], -(-t // TILE_STEP) * TILE_STEP)
-    while tile > 0:
-        if stage_smem(c, halo, tile, dtype) <= SMEM_LIMIT:
-            return tile
-        tile -= TILE_STEP
+    halo = stage_halo(kernel_sizes, dilation_sizes)
+    step = TILE_STEP[dtype]
+    top = min(MAX_TILE[dtype], _cdiv(t, step) * step)
+    if dtype == torch.bfloat16:
+        for tile in range(top, 0, -step):
+            if stage_smem(c, halo, tile, dtype) <= SMEM_LIMIT:
+                return tile
+    else:
+        best = best_cost = None
+        for tile in range(step, top + 1, step):
+            if not stage_plan_f32(c, halo, tile)[2]:
+                break
+            waves = _cdiv(batch * _cdiv(t, tile), n_sm)
+            work = sum(_cdiv(n, WGMMA_ROWS) + _cdiv(n, pass_rows(c, dtype))
+                       for n in stage_convs(tile, kernel_sizes, dilation_sizes))
+            if best_cost is None or waves * work <= best_cost:
+                best, best_cost = tile, waves * work
+        if best is not None:
+            return best
     raise ValueError(f"no time tile fits shared memory at C={c}, halo {halo}")
+
+
+def pack_stage_f32(weights: StageWeights):
+    """The f32 kernel's weights: every conv's HIO weight, chains and units in
+    order and w1 before w2, as one K-major buffer (taps, C_out, C_in), with
+    the first tap of each unit's w1 and w2."""
+    flat, taps1, taps2, tap = [], [], [], 0
+    for units in weights:
+        for w1, _, w2, _ in units:
+            taps1.append(tap)
+            taps2.append(tap + w1.shape[0])
+            tap += w1.shape[0] + w2.shape[0]
+            flat += [w1, w2]
+    return kmajor(flat), taps1, taps2
 
 
 def fused_mrf_stage(x, weights: StageWeights, kernel_sizes: Sequence[int],
@@ -123,21 +200,31 @@ def fused_mrf_stage(x, weights: StageWeights, kernel_sizes: Sequence[int],
                 shapes.append(shape)
                 ptrs.append(tns.data_ptr())
     check_operands("fused_mrf_stage", x, tensors, shapes)
-    tile = stage_tile(c, stage_halo(kernel_sizes, dilation_sizes), t, x.dtype)
+    tile = stage_tile(c, tuple(kernel_sizes), tuple(map(tuple, dilation_sizes)), t, x.dtype, bsz,
+                      sm_count(x.device))
     lib = build.load()
     i32 = ctypes.c_int
     with torch.cuda.device(x.device):  # as in fused_residual_unit
         y = torch.empty_like(x)
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.evt_mrf_stage(
-            x.data_ptr(), y.data_ptr(),
-            (ctypes.c_void_p * len(ptrs))(*ptrs),
-            (i32 * n_chains)(*[int(k) for k in kernel_sizes]),
-            (i32 * n_chains)(*n_units),
-            (i32 * len(dils))(*dils),
-            n_chains, bsz, t, c, tile, ring_rows(c, x.dtype), int(x.dtype == torch.bfloat16),
-            ctypes.c_void_p(stream),
-        )
+        stream = ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream)
+        ks = (i32 * n_chains)(*[int(k) for k in kernel_sizes])
+        if x.dtype == torch.float32:
+            box, n_box, stages, _ = stage_plan_f32(
+                c, stage_halo(kernel_sizes, dilation_sizes), tile)
+            kmt, kc, _ = WG_CFG[c]
+            w, taps1, taps2 = pack_stage_f32(weights)
+            biases = [u[i].data_ptr() for units in weights for u in units for i in (1, 3)]
+            err = lib.evt_mrf_stage_f32(
+                x.data_ptr(), y.data_ptr(), w.data_ptr(), w.shape[0],
+                (ctypes.c_void_p * len(biases))(*biases), (i32 * len(taps1))(*taps1),
+                (i32 * len(taps2))(*taps2), ks, (i32 * n_chains)(*n_units),
+                (i32 * len(dils))(*dils), n_chains, bsz, t, c, tile, box, n_box, stages,
+                kmt, kc, stream)
+        else:
+            err = lib.evt_mrf_stage_bf16(
+                x.data_ptr(), y.data_ptr(), (ctypes.c_void_p * len(ptrs))(*ptrs), ks,
+                (i32 * n_chains)(*n_units), (i32 * len(dils))(*dils),
+                n_chains, bsz, t, c, tile, ring_rows(c), stream)
         build.check(err, "fused_mrf_stage")
     build.count_launch(fused_mrf_stage)
     return y

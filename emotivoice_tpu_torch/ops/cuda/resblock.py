@@ -6,8 +6,11 @@ Replaces the TPU kernel `emotivoice_tpu/ops/pallas/resblock.py`
 its header comment states what bounds it on the H100 (operations: hundreds
 of FLOP per byte moved) and what its design does about that (the
 intermediate stays in shared memory, x is read once and y written once; both
-convs run on the tensor cores: bf16 through `csrc/mma_conv.cuh`, f32 as a
-3xTF32 split through `csrc/mma_conv_f32.cuh`).
+convs run on the tensor cores: bf16 through `csrc/mma_conv.cuh` (`mma.sync`),
+f32 as a 3xTF32 split through `csrc/wgmma_conv_f32.cuh` (`wgmma`, weights by
+TMA through a producer's ring). For f32 the wrapper hands the kernel both
+convs' weights K-major in one buffer, (2K, C_out, C_in): `wgmma` reads tf32
+B only K-major.
 
 `fused_residual_unit` launches the kernel for a CUDA tensor and takes the
 plain version for a CPU tensor; any other device, dtype or shape raises, and
@@ -27,10 +30,10 @@ from emotivoice_tpu_torch.ops.cuda import build
 LRELU_SLOPE = 0.1
 SMEM_LIMIT = 232_448  # bytes of shared memory one block may use on sm_90
 CHANNELS = (32, 64, 128, 256)  # C the kernels are instantiated for
-# the tensor-core conv cores: csrc/mma_conv.cuh (bf16), csrc/mma_conv_f32.cuh (f32)
+# bf16: the mma.sync core, csrc/mma_conv.cuh
 WARPS = 8  # kWarps
 MMA_ROWS = 16  # rows of one mma.sync m16 tile
-# MmaCfg<C, T> as (kWN, kNT, kMT, kKC, kStages): warps across C_out, n8 tiles and
+# MmaCfg<C, bf16> as (kWN, kNT, kMT, kKC, kStages): warps across C_out, n8 tiles and
 # m16 tiles per warp, weight rows (tap x C_in) per ring stage, ring depth
 MMA_CFG = {
     torch.bfloat16: {
@@ -39,21 +42,22 @@ MMA_CFG = {
         128: (2, 8, 4, 128, 2),
         256: (4, 8, 4, 64, 2),
     },
-    torch.float32: {
-        32: (1, 4, 5, 32, 3),
-        64: (1, 8, 3, 32, 2),
-        128: (2, 8, 4, 16, 3),
-        256: (4, 8, 4, 16, 2),
-    },
 }
-RING_PAD = {torch.bfloat16: 0, torch.float32: 8}  # MmaTile<C, T>::kLd - C, values per ring row
-# Fewest rows of a tile: each weight byte a block streams from L2 serves that
-# many rows, and below them L2 becomes the limit. f32 rows are twice as wide,
-# so fewer fit beside the ring.
-MMA_MIN_ROWS = {
-    torch.bfloat16: {32: 64, 64: 64, 128: 128, 256: 64},
-    torch.float32: {32: 64, 64: 64, 128: 96, 256: 48},
+# Fewest rows of a bf16 tile: each weight byte a block streams from L2 serves
+# that many rows, and below them L2 becomes the limit.
+MMA_MIN_ROWS = {torch.bfloat16: {32: 64, 64: 64, 128: 128, 256: 64}}
+# f32: the wgmma core, csrc/wgmma_conv_f32.cuh. WgCfg<C> as (kMT, kKC, kStages):
+# m64 tiles per consumer warpgroup and pass, input channels per ring stage,
+# deepest ring a launch takes
+WG_CFG = {
+    32: (2, 32, 6),
+    64: (2, 32, 4),
+    128: (1, 32, 4),
+    256: (1, 8, 4),
 }
+WG_CONSUMERS = 2  # kConsumerWGs
+WGMMA_ROWS = 64  # rows of one wgmma m64 tile
+BOX_ROWS = 256  # most rows of one TMA box
 H100_SMS = 132  # streaming multiprocessors of an H100 SXM
 
 
@@ -83,22 +87,40 @@ def residual_unit_plain(x, w1, b1, w2, b2, k: int, d: int) -> torch.Tensor:
 
 def tf32_round(v: torch.Tensor) -> torch.Tensor:
     """f32 values rounded to TF32 (10-bit mantissa), nearest with ties away
-    from zero, as the f32 kernels' split_tf32 (csrc/mma_conv_f32.cuh) does:
-    half a TF32 ulp added to the magnitude bits, the low 13 bits dropped."""
+    from zero, as the f32 core's split_tf32 (csrc/wgmma_conv_f32.cuh) rounds
+    the activations: half a TF32 ulp added to the magnitude bits, the low 13
+    bits dropped."""
     bits = v.contiguous().view(torch.int32)
     return ((bits + 0x1000) & -0x2000).view(torch.float32)
 
 
+def tf32_trunc(v: torch.Tensor) -> torch.Tensor:
+    """f32 values truncated to TF32: what the tensor cores read of a raw f32
+    operand, the f32 core's weight head."""
+    return (v.contiguous().view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def weight_split(w: torch.Tensor):
+    """The f32 core's weights as the tensor cores read them: head the raw
+    tile truncated to TF32, tail w - head rounded to TF32 (made in shared
+    memory beside each ring stage, `weight_tail`). head + tail = w within
+    2**-22 |w|."""
+    head = tf32_trunc(w)
+    return head, tf32_round(w - head)
+
+
 def conv_same_3xtf32(a, w_hio, bias, dilation: int, terms: int = 3) -> torch.Tensor:
-    """conv_same in the f32 kernels' arithmetic, for the CPU tests: both
-    operands split into a TF32 head and tail, the conv taken as
-    tail*head + head*tail + head*head with f32 sums (tail*tail dropped).
-    terms=1 keeps head*head alone: one TF32 product per f32 product."""
-    a_head, w_head = tf32_round(a), tf32_round(w_hio)
+    """conv_same in the f32 kernels' arithmetic, for the CPU tests: the
+    activation split into a TF32 head and tail (`tf32_round`), the weight as
+    `weight_split`, the conv taken as tail*head + head*tail + head*head with
+    f32 sums (tail*tail dropped). terms=1 keeps head*head alone: one TF32
+    product per f32 product."""
+    a_head = tf32_round(a)
+    w_head, w_tail = weight_split(w_hio)
     zero = torch.zeros_like(bias)
     y = conv_same(a_head, w_head, zero, dilation)
     if terms == 3:
-        a_tail, w_tail = tf32_round(a - a_head), tf32_round(w_hio - w_head)
+        a_tail = tf32_round(a - a_head)
         y = (conv_same(a_tail, w_head, zero, dilation)
              + conv_same(a_head, w_tail, zero, dilation)) + y
     return y + bias
@@ -111,32 +133,90 @@ def residual_unit_3xtf32(x, w1, b1, w2, b2, k: int, d: int) -> torch.Tensor:
     return x + xt
 
 
-def ring_rows(c: int, dtype: torch.dtype) -> int:
-    """Weight rows per ring stage passed to the kernel (`kc`)."""
-    return MMA_CFG[dtype][c][3]
+def kmajor(weights) -> torch.Tensor:
+    """HIO weights (K_i, C_in, C_out), one after another, as the f32 kernels'
+    one K-major buffer (sum K_i, C_out, C_in): two launches on the card
+    whatever the count (a cat, then one transposing copy)."""
+    return torch.cat(list(weights)).transpose(1, 2).contiguous()
 
 
-def weight_smem(c: int, dtype: torch.dtype) -> int:
-    """Bytes of shared memory the cp.async weight ring takes."""
-    _, _, _, kc, stages = MMA_CFG[dtype][c]
-    return stages * kc * (c + RING_PAD[dtype]) * dtype.itemsize
+def ring_rows(c: int) -> int:
+    """bf16 weight rows per ring stage passed to the kernel (`kc`)."""
+    return MMA_CFG[torch.bfloat16][c][3]
+
+
+def weight_smem(c: int) -> int:
+    """Bytes of shared memory the bf16 cp.async weight ring takes."""
+    _, _, _, kc, stages = MMA_CFG[torch.bfloat16][c]
+    return stages * kc * c * 2
 
 
 def pass_rows(c: int, dtype: torch.dtype) -> int:
     """Output rows one pass of the kernel's conv loop covers."""
+    if dtype == torch.float32:
+        return WG_CONSUMERS * WG_CFG[c][0] * WGMMA_ROWS
     wn, _, mt, _, _ = MMA_CFG[dtype][c]
     return WARPS // wn * mt * MMA_ROWS
 
 
-def unit_smem(c: int, k: int, d: int, tile: int, dtype: torch.dtype) -> int:
-    """Shared memory of one block: haloed x tile, intermediate, weights."""
-    h1, h2 = (k - 1) // 2 * d, (k - 1) // 2
-    rows = (tile + 2 * (h1 + h2)) + (tile + 2 * h2)
-    return dtype.itemsize * c * rows + weight_smem(c, dtype)
-
-
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
+
+
+def act_boxes(rows: int):
+    """(box_rows, n_box): TMA boxes of at most BOX_ROWS rows, a multiple of 8,
+    that cover an f32 activation tile of `rows` rows."""
+    n_box = _cdiv(rows, BOX_ROWS)
+    return _cdiv(_cdiv(rows, n_box), 8) * 8, n_box
+
+
+def f32_stage_bytes(c: int) -> int:
+    """Shared memory of one f32 ring stage: head and tail tiles, 3 mbarriers."""
+    return 2 * c * WG_CFG[c][1] * 4 + 24
+
+
+def f32_ring_stages(c: int, other: int) -> int:
+    """Most ring stages (at most kStages) beside `other` bytes of shared
+    memory; 0 where fewer than two fit."""
+    n = min(WG_CFG[c][2], (SMEM_LIMIT - other) // f32_stage_bytes(c))
+    return n if n >= 2 else 0
+
+
+def unit_plan_f32(c: int, k: int, d: int, tile: int):
+    """(box_rows, n_box, stages, smem bytes) of the f32 kernel at `tile`: the x
+    tile (reused for the intermediate), 1 KB of alignment slack, x's
+    mbarrier and the ring."""
+    h1, h2 = (k - 1) // 2 * d, (k - 1) // 2
+    box, n_box = act_boxes(tile + 2 * (h1 + h2))
+    other = 1024 + c * 4 * box * n_box + 8
+    stages = f32_ring_stages(c, other)
+    return box, n_box, stages, other + stages * f32_stage_bytes(c)
+
+
+def unit_smem(c: int, k: int, d: int, tile: int, dtype: torch.dtype) -> int:
+    """Shared memory of one block. bf16: haloed x tile, intermediate,
+    weights; f32: `unit_plan_f32`."""
+    if dtype == torch.float32:
+        return unit_plan_f32(c, k, d, tile)[3]
+    h1, h2 = (k - 1) // 2 * d, (k - 1) // 2
+    rows = (tile + 2 * (h1 + h2)) + (tile + 2 * h2)
+    return dtype.itemsize * c * rows + weight_smem(c)
+
+
+def _unit_cands(c: int, k: int, dtype: torch.dtype):
+    """Tiles the planner weighs: conv1 at most one pass of the core and the
+    tile or conv1's rows whole mma tiles (m16 for bf16, m64 for f32); bf16
+    tiles at least MMA_MIN_ROWS rows (fewer only where the pass is shorter).
+    (f32 conv1 in two passes, at 128 rows for 3 waves instead of 4 at C=256,
+    was slower in every case timed: PERF.md.)"""
+    h2 = (k - 1) // 2
+    rows = pass_rows(c, dtype)
+    step = WGMMA_ROWS if dtype == torch.float32 else MMA_ROWS
+    hi = rows - 2 * h2
+    lo = 1 if dtype == torch.float32 else min(MMA_MIN_ROWS[dtype][c], hi)
+    cands = {m * step for m in range(1, rows // step + 1)}
+    cands |= {m * step - 2 * h2 for m in range(1, rows // step + 1)}
+    return sorted(x for x in cands if lo <= x <= hi), step
 
 
 @functools.lru_cache(maxsize=None)
@@ -144,30 +224,28 @@ def unit_tile(c: int, k: int, d: int, t: int, dtype: torch.dtype = torch.float32
               batch: int = 1, n_sm: int = H100_SMS) -> int:
     """Time tile of the kernel, within the shared-memory limit.
 
-    conv1 covers at most one pass of the tensor-core core, the tile has at
-    least MMA_MIN_ROWS[dtype][c] rows (fewer only where the pass is shorter),
-    and the tile or conv1's rows are a whole number of m16 tiles. Of those,
-    the tile with the least waves * work: waves = ceil(blocks / n_sm), work =
-    the m16 tiles per warp of both convs plus one per conv for its weight
-    stream.
+    Of the candidates (`_unit_cands`) that fit (f32: beside a ring of at
+    least two stages), the tile with the least waves * work: waves =
+    ceil(blocks / n_sm), work = per conv, the mma tiles a warp (bf16) or the
+    m64 tiles the block (f32) runs, plus one per pass for its weight stream.
     """
     if c not in CHANNELS:
         raise ValueError(f"no kernel for C={c}; C must be one of {CHANNELS}")
-    if dtype not in MMA_CFG:
+    if dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"no kernel for {dtype}")
     h2 = (k - 1) // 2
-    warps_m = WARPS // MMA_CFG[dtype][c][0]
-    rows = pass_rows(c, dtype)
-    hi = rows - 2 * h2
-    lo = min(MMA_MIN_ROWS[dtype][c], hi)
-    cands = {m * MMA_ROWS for m in range(1, rows // MMA_ROWS + 1)}
-    cands |= {m * MMA_ROWS - 2 * h2 for m in range(1, rows // MMA_ROWS + 1)}
+    cands, step = _unit_cands(c, k, dtype)
+    per = 1 if dtype == torch.float32 else WARPS // MMA_CFG[dtype][c][0]
     best = best_cost = None
-    for tile in sorted(x for x in cands if lo <= x <= hi):
-        if unit_smem(c, k, d, tile, dtype) > SMEM_LIMIT:
+    for tile in cands:
+        if dtype == torch.float32:
+            if not unit_plan_f32(c, k, d, tile)[2]:
+                break
+        elif unit_smem(c, k, d, tile, dtype) > SMEM_LIMIT:
             break
         waves = _cdiv(batch * _cdiv(t, tile), n_sm)
-        work = sum(_cdiv(_cdiv(n, MMA_ROWS), warps_m) + 1 for n in (tile + 2 * h2, tile))
+        work = sum(_cdiv(_cdiv(n, step), per) + _cdiv(n, pass_rows(c, dtype))
+                   for n in (tile + 2 * h2, tile))
         if best_cost is None or waves * work <= best_cost:
             best, best_cost = tile, waves * work
     if best is None:
@@ -228,12 +306,18 @@ def fused_residual_unit(x, w1, b1, w2, b2, k: int, d: int) -> torch.Tensor:
     # current device: make it x's (an engine replica may not be on it)
     with torch.cuda.device(x.device):
         y = torch.empty_like(x)
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.evt_residual_unit(
-            x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-            y.data_ptr(), bsz, t, c, k, d, tile, ring_rows(c, x.dtype),
-            int(x.dtype == torch.bfloat16), ctypes.c_void_p(stream),
-        )
+        stream = ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream)
+        if x.dtype == torch.float32:
+            box, n_box, stages, _ = unit_plan_f32(c, k, d, tile)
+            kmt, kc, _ = WG_CFG[c]
+            w = kmajor((w1, w2))
+            err = lib.evt_residual_unit_f32(
+                x.data_ptr(), w.data_ptr(), b1.data_ptr(), b2.data_ptr(), y.data_ptr(),
+                bsz, t, c, k, d, tile, box, n_box, stages, kmt, kc, stream)
+        else:
+            err = lib.evt_residual_unit_bf16(
+                x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
+                y.data_ptr(), bsz, t, c, k, d, tile, ring_rows(c), stream)
         build.check(err, "fused_residual_unit")
     build.count_launch(fused_residual_unit)
     return y

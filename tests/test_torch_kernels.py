@@ -302,20 +302,28 @@ def test_operand_checks_accept_valid():
 @pytest.mark.parametrize("c", [128, 256])
 def test_unit_tile_fits_shared_memory_at_main_path_shapes(c, dtype):
     t = {256: 8 * 384, 128: 64 * 384}[c]  # stages 1-2 of the bench bucket
-    _, _, _, kc, stages = trb.MMA_CFG[dtype][c]
-    ring = stages * kc * (c + trb.RING_PAD[dtype])  # values in the weight ring
-    # rows per weight byte from L2: f32 rows are twice as wide
-    least = {torch.bfloat16: {256: 64, 128: 128}, torch.float32: {256: 48, 128: 96}}[dtype][c]
     for k in V1_KS:
         for d in (1, 3, 5):
             h1, h2 = (k - 1) // 2 * d, (k - 1) // 2
             tile = trb.unit_tile(c, k, d, t, dtype, batch=16, n_sm=132)
-            smem = dtype.itemsize * (c * ((tile + 2 * (h1 + h2)) + (tile + 2 * h2)) + ring)
+            if dtype == torch.bfloat16:
+                _, _, _, kc, stages = trb.MMA_CFG[dtype][c]
+                ring = stages * kc * c  # values in the weight ring
+                smem = 2 * (c * ((tile + 2 * (h1 + h2)) + (tile + 2 * h2)) + ring)
+                # either conv2 or conv1 covers whole m16 tiles
+                assert tile % trb.MMA_ROWS == 0 or (tile + 2 * h2) % trb.MMA_ROWS == 0
+                assert tile >= {256: 64, 128: 128}[c]  # rows per weight byte from L2
+            else:
+                box, n_box, stages, smem = trb.unit_plan_f32(c, k, d, tile)
+                _, kc, most = trb.WG_CFG[c]
+                # x tile (slabs of box rows, reused for the intermediate), ring, slack, barriers
+                assert smem == 1024 + 4 * c * box * n_box + stages * (2 * c * kc * 4 + 24) + 8
+                assert box * n_box >= tile + 2 * (h1 + h2) and box % 8 == 0 and box <= 256
+                assert 2 <= stages <= most
+                # conv1 covers whole m64 wgmma tiles, both consumer warpgroups' worth
+                assert (tile + 2 * h2) % (trb.WGMMA_ROWS * trb.WG_CONSUMERS) == 0
             assert smem == trb.unit_smem(c, k, d, tile, dtype) <= trb.SMEM_LIMIT
-            # either conv2 or conv1 covers whole m16 tiles, conv1 one pass
-            assert tile % trb.MMA_ROWS == 0 or (tile + 2 * h2) % trb.MMA_ROWS == 0
-            assert tile + 2 * h2 <= trb.pass_rows(c, dtype)
-            assert tile >= least
+            assert tile + 2 * h2 <= trb.pass_rows(c, dtype)  # conv1 is one pass
             assert tile >= h1 + h2  # the tile covers one side's halo
 
 
@@ -331,16 +339,21 @@ def test_unit_tile_bf16_fills_whole_waves():
 
 
 def test_unit_tile_f32_is_bounded_by_shared_memory():
-    """f32 rows are 1 KB at C=256. At k=11 d=5 a tile has 70 halo and
-    intermediate rows beside it and the ring takes 33,792 bytes: 64 rows do
-    not fit (236,544 of 232,448 bytes), so the tile is 54, conv1 covering
-    four whole m16 tiles. At k=3 d=1 a 94-row tile takes the limit exactly."""
-    assert trb.weight_smem(256, torch.float32) == 33_792
-    assert trb.unit_smem(256, 11, 5, 64, torch.float32) == 236_544
-    assert trb.unit_tile(256, 11, 5, 3072, torch.float32, batch=16, n_sm=132) == 54
-    assert trb.unit_tile(256, 3, 1, 3072, torch.float32, batch=16, n_sm=132) == 94
-    assert trb.unit_smem(256, 3, 1, 94, torch.float32) == trb.SMEM_LIMIT
-    assert trb.unit_tile(128, 11, 5, 24576, torch.float32, batch=16, n_sm=132) == 166
+    """f32 rows are 1 KB at C=256, and a ring stage is 16 KB (8 input
+    channels of 256 outputs, head and tail). At k=11 d=5 the 118-row tile
+    (conv1 one 128-row pass) needs 178 x rows, in a 184-row box: 189,448
+    bytes beside the ring leave room for 2 stages, where k=3 d=1 keeps 4.
+    Every weight byte a block streams then serves 118-126 rows at C=256,
+    against 54-94 in the mma.sync core; at C=128 a 32-channel stage (32 KB)
+    serves 118-126 rows in one pass of one m64 tile per warpgroup."""
+    assert trb.f32_stage_bytes(256) == 16_408
+    assert trb.unit_plan_f32(256, 11, 5, 118) == (184, 1, 2, 222_264)
+    assert trb.unit_plan_f32(256, 3, 1, 126) == (136, 1, 4, 205_928)
+    assert trb.unit_tile(256, 11, 5, 3072, torch.float32, batch=16, n_sm=132) == 118
+    assert trb.unit_tile(256, 3, 1, 3072, torch.float32, batch=16, n_sm=132) == 126
+    assert trb.unit_tile(128, 11, 5, 24576, torch.float32, batch=16, n_sm=132) == 118
+    # a tile whose x rows leave no room for two stages is not taken
+    assert trb.unit_plan_f32(256, 11, 5, 182)[2] == 0
 
 
 @pytest.mark.parametrize("dtype", [torch.float16, torch.float64])
@@ -348,59 +361,161 @@ def test_tile_planners_refuse_other_dtypes(dtype):
     with pytest.raises(TypeError, match="no kernel"):
         trb.unit_tile(128, 3, 1, 1024, dtype)
     with pytest.raises(TypeError, match="no kernel"):
-        tms.stage_tile(64, 60, 1024, dtype)
+        tms.stage_tile(64, V1_KS, V1_DS, 1024, dtype)
 
 
 @pytest.mark.parametrize("c,dtype,want_tile", [
-    (64, torch.float32, 192), (32, torch.float32, 448),
+    (64, torch.float32, 240), (32, torch.float32, 704),
     (64, torch.bfloat16, 320), (32, torch.bfloat16, 768),
 ])
 def test_stage_tile_at_main_path_shapes(c, dtype, want_tile):
     halo = tms.stage_halo(V1_KS, V1_DS)
     assert halo == 60  # k=11: 5*(1+1) + 5*(3+1) + 5*(5+1)
-    tile = tms.stage_tile(c, halo, 49152, dtype)
+    t = {64: 128 * 384, 32: 256 * 384}[c]  # stages 3-4 of the bench bucket
+    tile = tms.stage_tile(c, V1_KS, V1_DS, t, dtype, batch=16, n_sm=132)
     assert tile == want_tile
-    _, _, _, kc, stages = trb.MMA_CFG[dtype][c]
-    ring = stages * kc * (c + trb.RING_PAD[dtype])
-    smem = dtype.itemsize * (c * 2 * (tile + 2 * halo) + ring) + 4 * c * tile
+    if dtype == torch.bfloat16:
+        _, _, _, kc, stages = trb.MMA_CFG[dtype][c]
+        smem = 2 * (c * 2 * (tile + 2 * halo) + stages * kc * c) + 4 * c * tile
+        assert tile % 64 == 0 and tile >= 2 * halo
+        # every conv of the tile (at most tile + 2 * halo rows) is one pass of the core
+        assert tile + 2 * halo <= trb.pass_rows(c, dtype)
+        assert tms.stage_tile(c, V1_KS, V1_DS, 50, dtype) == 64  # short inputs get one step
+    else:
+        box, n_box, stages, smem = tms.stage_plan_f32(c, halo, tile)
+        _, kc, most = trb.WG_CFG[c]
+        # chain activation and intermediate (slabs of box rows each), ring, slack; the
+        # chain sum stays in y
+        assert smem == 1024 + 4 * c * 2 * box * n_box + stages * (2 * c * kc * 4 + 24) + 8
+        assert box * n_box >= tile + 2 * halo and 2 <= stages <= most and tile % 8 == 0
+        assert tms.stage_tile(c, V1_KS, V1_DS, 50, dtype) == 16  # short inputs: small tiles
     assert smem == tms.stage_smem(c, halo, tile, dtype) <= trb.SMEM_LIMIT
-    assert tile % trb.MMA_ROWS == 0 and tile >= 2 * halo
-    # every conv of the tile (at most tile + 2 * halo rows) is one pass of the core
-    assert tile + 2 * halo <= trb.pass_rows(c, dtype)
-    assert tms.stage_tile(c, halo, 50, dtype) == 64  # short inputs get one step
+
+
+@pytest.mark.parametrize("c,t,least", [(64, 128 * 384, 0.80), (32, 256 * 384, 0.91)])
+def test_stage_tile_f32_plans_whole_wgmma_tiles(c, t, least):
+    """The f32 tile is the one whose 18 convs waste the least of their m64
+    wgmma tiles and passes (the k=11 chain's first conv, tile + 110 rows,
+    among them), against the waves it makes: at the bench bucket its convs
+    run at least 80% (C=64) / 91% (C=32) useful rows in whole m64 tiles.
+    Each of them beat the neighbouring tiles on the card (PERF.md)."""
+    tile = tms.stage_tile(c, V1_KS, V1_DS, t, torch.float32, batch=16, n_sm=132)
+    rows = tms.stage_convs(tile, V1_KS, V1_DS)
+    assert len(rows) == 18 and rows[-1] == tile and max(rows) == tile + 110
+    m64 = sum(-(-n // trb.WGMMA_ROWS) for n in rows)
+    assert 18 * tile / (trb.WGMMA_ROWS * m64) >= least
+    passes = sum(-(-n // trb.pass_rows(c, torch.float32)) for n in rows)
+    waves = -(-16 * -(-t // tile) // 132)
+    for other in range(8, tms.MAX_TILE[torch.float32] + 1, 8):  # none does less work for its waves
+        if not tms.stage_plan_f32(c, 60, other)[2]:
+            break
+        o_rows = tms.stage_convs(other, V1_KS, V1_DS)
+        o_work = sum(-(-n // trb.WGMMA_ROWS) + -(-n // trb.pass_rows(c, torch.float32))
+                     for n in o_rows)
+        assert waves * (m64 + passes) <= -(-16 * -(-t // other) // 132) * o_work
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_stage_tile_refuses_what_does_not_fit(dtype):
     with pytest.raises(ValueError, match="shared memory"):
-        tms.stage_tile(256, 60, 4096, dtype)
+        tms.stage_tile(256, V1_KS, V1_DS, 4096, dtype)
 
 
 def test_core_config_matches_the_cuda_header():
-    """The wrappers' MMA_CFG, RING_PAD and WARPS mirror MmaCfg<C, T>
-    (mma_conv.cuh for bf16, mma_conv_f32.cuh for float), MmaTile<C, T>::kLd
-    and kThreads (conv_tile.cuh), from which the kernels size shared memory."""
-    names = {torch.bfloat16: ("mma_conv.cuh", "bf16", 16), torch.float32: ("mma_conv_f32.cuh", "float", 8)}
-    for dtype, (fname, tname, k_step) in names.items():
-        with open(os.path.join(build.CSRC_DIR, fname)) as f:
-            header = f.read()
-        cfg = {
-            int(c): tuple(int(v) for v in vals)
-            for c, *vals in re.findall(
-                r"struct MmaCfg<(\d+), %s> \{ static constexpr int kWN = (\d+), kNT = (\d+), "
-                r"kMT = (\d+), kKC = (\d+), kStages = (\d+); \};" % tname, header)
-        }
-        assert cfg == trb.MMA_CFG[dtype]
-        for c, (wn, nt, _, kc, stages) in cfg.items():
-            assert wn * nt * 8 == c and kc % k_step == 0 and stages >= 2
-            if dtype == torch.float32:  # a chunk lies within one tap; whole copies per thread
-                assert c % kc == 0 and kc * c // 4 % (32 * trb.WARPS) == 0
+    """The wrappers' MMA_CFG and WARPS mirror MmaCfg<C, bf16> (mma_conv.cuh)
+    and kThreads (conv_tile.cuh), from which the bf16 kernels size shared
+    memory; f32 has no MmaCfg any more (its core is WgCfg<C>)."""
+    with open(os.path.join(build.CSRC_DIR, "mma_conv.cuh")) as f:
+        header = f.read()
+    cfg = {
+        int(c): tuple(int(v) for v in vals)
+        for c, *vals in re.findall(
+            r"struct MmaCfg<(\d+), bf16> \{ static constexpr int kWN = (\d+), kNT = (\d+), "
+            r"kMT = (\d+), kKC = (\d+), kStages = (\d+); \};", header)
+    }
+    assert cfg == trb.MMA_CFG[torch.bfloat16] and set(trb.MMA_CFG) == {torch.bfloat16}
+    for c, (wn, nt, _, kc, stages) in cfg.items():
+        assert wn * nt * 8 == c and kc % 16 == 0 and stages >= 2
+    assert "MmaCfg<" not in open(os.path.join(build.CSRC_DIR, "wgmma_conv_f32.cuh")).read()
     with open(os.path.join(build.CSRC_DIR, "conv_tile.cuh")) as f:
         shared = f.read()
     threads = int(re.search(r"constexpr int kThreads = (\d+);", shared).group(1))
     assert threads == 32 * trb.WARPS
-    pad = re.search(r"kLd = std::is_same<T, float>::value \? C \+ (\d+) : C;", shared)
-    assert trb.RING_PAD == {torch.bfloat16: 0, torch.float32: int(pad.group(1))}
+
+
+def test_wg_config_matches_the_cuda_header():
+    """WG_CFG and WG_CONSUMERS mirror WgCfg<C> and kConsumerWGs of the f32
+    core (wgmma_conv_f32.cuh), from which the f32 kernels size shared memory;
+    each config keeps its accumulators within the registers (kMT * C / 2 <=
+    128) and its stage a whole swizzle mode."""
+    with open(os.path.join(build.CSRC_DIR, "wgmma_conv_f32.cuh")) as f:
+        header = f.read()
+    cfg = {
+        int(c): tuple(int(v) for v in vals)
+        for c, *vals in re.findall(
+            r"struct WgCfg<(\d+)> \{ static constexpr int kMT = (\d+), kKC = (\d+), "
+            r"kStages = (\d+); \};", header)
+    }
+    assert cfg == trb.WG_CFG and sorted(cfg) == list(trb.CHANNELS)
+    consts = dict(re.findall(r"constexpr int (k\w+) = (\d+);", header))
+    assert int(consts["kConsumerWGs"]) == trb.WG_CONSUMERS
+    for c, (mt, kc, stages) in cfg.items():
+        assert mt * c // 2 <= 128 and kc in (8, 16, 32) and c % kc == 0 and stages >= 2
+        assert c * kc * 4 % 1024 == 0  # stages stay aligned to the swizzle atoms
+        assert trb.pass_rows(c, torch.float32) == trb.WG_CONSUMERS * mt * trb.WGMMA_ROWS
+
+
+@pytest.mark.parametrize("k", V1_KS)
+def test_f32_relayout_is_exact_and_splits_within_2_pow_minus_22(k):
+    """kmajor hands the f32 kernels (K, C_out, C_in) copies of the HIO
+    weights, bit-equal; the head (truncated to TF32, as the tensor cores read
+    the raw tile) plus the tail (made beside each stage) gives w back within
+    2**-22 |w|, for the unit's packing and the stage's."""
+    rng = np.random.RandomState(k)
+    c = 64
+    w1, _, w2, _ = _t(_unit(rng, k, c))
+    km = trb.kmajor((w1, w2))
+    assert km.shape == (2 * k, c, c) and km.is_contiguous()
+    assert torch.equal(km[:k].transpose(1, 2), w1) and torch.equal(km[k:].transpose(1, 2), w2)
+    ws = _t(_stage(rng, V1_KS, V1_DS, c))
+    packed, taps1, taps2 = tms.pack_stage_f32(ws)
+    for buf in (km, packed):
+        head, tail = trb.weight_split(buf)
+        assert int((head.view(torch.int32) & 0x1FFF).abs().max()) == 0  # TF32
+        assert int((tail.view(torch.int32) & 0x1FFF).abs().max()) == 0
+        assert torch.equal(head, trb.tf32_trunc(buf))
+        assert bool(((head + tail - buf).abs() <= 2.0 ** -22 * buf.abs()).all())
+
+
+def test_stage_weight_buffer_offsets_address_every_conv():
+    """pack_stage_f32's taps1 / taps2 are each unit's first tap of w1 and w2
+    in the one K-major buffer, chains and units in the order the kernel runs
+    them: every conv's weight is found there, and the buffer has no other."""
+    rng = np.random.RandomState(5)
+    c = 32
+    ks, ds = (3, 7, 11), ((1, 3, 5), (1, 3), (2,))
+    ws = _t(_stage(rng, ks, ds, c))
+    packed, taps1, taps2 = tms.pack_stage_f32(ws)
+    assert packed.shape == (sum(2 * k * len(d) for k, d in zip(ks, ds)), c, c)
+    q = 0
+    for k, units in zip(ks, ws):
+        for w1, _, w2, _ in units:
+            assert torch.equal(packed[taps1[q]:taps1[q] + k].transpose(1, 2), w1)
+            assert torch.equal(packed[taps2[q]:taps2[q] + k].transpose(1, 2), w2)
+            q += 1
+    assert q == len(taps1) == len(taps2) == 6
+    assert taps1[0] == 0 and taps2[-1] + ks[-1] == packed.shape[0]
+
+
+def test_weight_split_is_truncated_head_and_rounded_tail():
+    """The f32 core's B split: head = w with its low 13 bits cleared (what
+    the tensor cores read of the raw TMA tile), tail = w - head rounded to
+    TF32 (tf32_round, ties away from zero), as weight_tail makes it."""
+    w = torch.from_numpy(np.random.RandomState(9).randn(4096).astype(np.float32))
+    head, tail = trb.weight_split(w)
+    assert torch.equal(head.view(torch.int32), w.view(torch.int32) & -0x2000)
+    assert torch.equal(tail, trb.tf32_round(w - head))
+    assert float(((w - head) / w.abs()).abs().max()) < 2.0 ** -10  # truncation, not rounding
 
 
 def test_chip_smoke_counts_tensor_core_instructions_per_instantiation():
@@ -408,43 +523,96 @@ def test_chip_smoke_counts_tensor_core_instructions_per_instantiation():
         "\t\tFunction : _ZN3evt20residual_unit_kernelILi256E13__nv_bfloat16EEvPKT0_S4_S4_S4_S4_PS2_iiii",
         "        /*0a30*/                   HMMA.16816.F32.BF16 R4, R12, R20, R4 ;",
         "        /*0a40*/                   HMMA.16816.F32.BF16 R8, R12, R22, R8 ;",
-        "\t\tFunction : _ZN3evt20residual_unit_kernelILi256EfEEvPKT0_S3_S3_S3_S3_PS1_iiii",
-        "        /*0100*/                   HMMA.1688.F32.TF32 R4, R8, R12, R4 ;",
+        "\t\tFunction : _ZN3evt20residual_unit_kernelILi256EfEEv14CUtensorMap_stS1_PKfS3_S3_Pfiiiiiii",
+        "        /*0100*/                   UTMALDG.3D [UR8], [UR4] ;",
         "        /*0110*/                   FADD R4, R5, R6 ;",
-        "        /*0120*/                   HMMA.1688.F32.TF32 R16, R8, R14, R16 ;",
-        "        /*0130*/                   HMMA.1688.F32.TF32 R20, R8, R14, R20 ;",
-        "\t\tFunction : _ZN3evt16mrf_stage_kernelILi64EfEEvPKT0_PS1_NS_9StageArgsEiii",
-        "        /*0100*/                   FFMA R4, R5, R6, R4 ;",
+        "        /*0120*/                   HGMMA.64x256x8.F32.TF32 R24, R16, gdesc[UR4], R24 ;",
+        "        /*0130*/                   HGMMA.64x256x8.F32.TF32 R24, R20, gdesc[UR8], R24, gsb0 ;",
+        "\t\tFunction : _ZN3evt16mrf_stage_kernelILi64EfEEv14CUtensorMap_stS1_PfNS_12StageArgsF32Eiiiiii",
+        "        /*0100*/                   HMMA.1688.F32.TF32 R4, R8, R12, R4 ;",
+        "        /*0110*/                   HGMMA.64x64x8.F32.TF32 R24, R16, gdesc[UR4], R24 ;",
         "\t\tFunction : _ZN3evt16mrf_stage_kernelILi32E13__nv_bfloat16EEvPKT0_PS2_NS_9StageArgsEiii",
         "        /*0200*/                   HMMA.16816.F32.BF16 R4, R12, R20, R4 ;",
+        "\t\tFunction : _ZN3evt16mrf_stage_kernelILi32EfEEv14CUtensorMap_stS1_PfNS_12StageArgsF32Eiiiiii",
+        "        /*0300*/                   FFMA R4, R5, R6, R4 ;",
         "\t\tFunction : some_other_kernel",
         "        /*0300*/                   HMMA.16816.F32.BF16 R4, R12, R20, R4 ;",
     ])
-    assert chip_smoke.parse_sass_mma(sass) == {
-        ("residual_unit_kernel", 256, "bf16"): 2,
-        ("residual_unit_kernel", 256, "f32"): 3,
-        ("mrf_stage_kernel", 64, "f32"): 0,
-        ("mrf_stage_kernel", 32, "bf16"): 1,
+    counts = chip_smoke.parse_sass_mma(sass)
+    zero = dict.fromkeys(("HMMA", "HGMMA", "UTMALDG"), 0)
+    assert counts == {
+        ("residual_unit_kernel", 256, "bf16"): {**zero, "HMMA": 2},
+        ("residual_unit_kernel", 256, "f32"): {**zero, "HGMMA": 2, "UTMALDG": 1},
+        ("mrf_stage_kernel", 64, "f32"): {**zero, "HMMA": 1, "HGMMA": 1},
+        ("mrf_stage_kernel", 32, "bf16"): {**zero, "HMMA": 1},
+        ("mrf_stage_kernel", 32, "f32"): zero,
     }
+    faults = chip_smoke.sass_faults(counts)
+    # f32: an HMMA beside the HGMMAs (the old core) and no TMA, or nothing at all
+    assert [f.split(":")[0] for f in faults] == [
+        "mrf_stage_kernel<32, f32>", "mrf_stage_kernel<64, f32>"]
+    # a kernel of which a dtype has no instantiation at all
+    del counts[("residual_unit_kernel", 256, "bf16")]
+    assert "residual_unit_kernel: no bf16 instantiation" in chip_smoke.sass_faults(counts)
+    good = {("residual_unit_kernel", 256, "bf16"): {**zero, "HMMA": 2},
+            ("residual_unit_kernel", 256, "f32"): {**zero, "HGMMA": 2, "UTMALDG": 1},
+            ("mrf_stage_kernel", 32, "bf16"): {**zero, "HMMA": 1},
+            ("mrf_stage_kernel", 32, "f32"): {**zero, "HGMMA": 1, "UTMALDG": 1}}
+    assert chip_smoke.sass_faults(good) == []
 
 
-@pytest.mark.parametrize("fname,tname,dtype", [
-    ("mma_conv_f32.cuh", "float", torch.float32), ("mma_conv.cuh", "bf16", torch.bfloat16)])
-def test_kernel_bench_patches_one_config_line(fname, tname, dtype):
-    """A --cfg variant replaces MmaCfg<C, T> of that C and type only."""
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_bench_patches_one_config_line(dtype):
+    """A --cfg variant replaces the config struct of that C and core only."""
+    fname, line = kernel_bench.CFG_LINE[dtype]
     with open(os.path.join(build.CSRC_DIR, fname)) as f:
         header = f.read()
-    cfg = kernel_bench.parse_cfg("256:4,8,4,8,3;64:2,4,5,32,2")
-    assert cfg == {256: (4, 8, 4, 8, 3), 64: (2, 4, 5, 32, 2)}
-    patched = kernel_bench.patch_header(header, cfg, tname)
+    if dtype == torch.float32:
+        text, mirror = "256:1,16,3;64:2,16,4", trb.WG_CFG
+        cfg = {256: (1, 16, 3), 64: (2, 16, 4)}
+        bad = "48:1,2,3"
+    else:
+        text, mirror = "256:4,8,4,8,3;64:2,4,5,32,2", trb.MMA_CFG[dtype]
+        cfg = {256: (4, 8, 4, 8, 3), 64: (2, 4, 5, 32, 2)}
+        bad = "48:1,2,3,4,5"
+    assert kernel_bench.parse_cfg(text, dtype) == cfg
+    patched = kernel_bench.patch_header(header, cfg, dtype)
     changed = [(a, b) for a, b in zip(header.splitlines(), patched.splitlines()) if a != b]
     assert len(changed) == 2 and len(header.splitlines()) == len(patched.splitlines())
-    assert kernel_bench.CFG_LINE % (256, tname, 4, 8, 4, 8, 3) in patched
-    assert kernel_bench.CFG_LINE % (128, tname, *trb.MMA_CFG[dtype][128]) in patched  # untouched
-    with pytest.raises(ValueError, match="no MmaCfg"):
-        kernel_bench.patch_header(header, cfg, "double")
+    assert line % (256, *cfg[256]) in patched
+    assert line % (128, *mirror[128]) in patched  # untouched
+    with pytest.raises(ValueError, match="no config struct"):
+        kernel_bench.patch_header(header, {48: cfg[64]}, dtype)
     with pytest.raises(ValueError, match="--cfg wants"):
-        kernel_bench.parse_cfg("48:1,2,3,4,5")
+        kernel_bench.parse_cfg(bad, dtype)
+    with pytest.raises(ValueError, match="--cfg wants"):  # the other core's arity
+        kernel_bench.parse_cfg(text, torch.bfloat16 if dtype == torch.float32 else torch.float32)
+
+
+def test_kernel_bench_reckons_the_l2_weight_stream():
+    """Each f32 block streams each conv's K x C x C weights from L2 once per
+    pass: at C=256 k=11 d=5 of the bench bucket 432 blocks of 118 rows read
+    2 x 5.77 MB each; the stage's 18 convs at C=64 read their taps once per
+    256-row pass."""
+    assert kernel_bench.l2_weight_bytes("unit", 256, 3072, 11, 5) == 432 * 2 * 11 * 256 * 256 * 4
+    tile = tms.stage_tile(64, V1_KS, V1_DS, 49152, torch.float32, 16, 132)
+    rows = tms.stage_convs(tile, V1_KS, V1_DS)
+    taps = [k for k in V1_KS for _ in range(6)]
+    per_block = sum(-(-n // 256) * k * 64 * 64 * 4 for n, k in zip(rows, taps))
+    assert kernel_bench.l2_weight_bytes("stage", 64, 49152) == 16 * -(-49152 // tile) * per_block
+
+
+def test_kernel_bench_forces_tiles_and_restores_the_planners():
+    assert kernel_bench.parse_tiles("unit256:118,128;stage64:168") == {
+        "unit256": (118, 128), "stage64": (168,)}
+    with pytest.raises(ValueError, match="--tiles wants"):
+        kernel_bench.parse_tiles("unit48:64")
+    planned = tms.stage_tile(64, V1_KS, V1_DS, 49152, torch.float32, 16, 132)
+    with kernel_bench.forced_tile("stage", 144), kernel_bench.forced_tile("unit", 64):
+        assert tms.stage_tile(64, V1_KS, V1_DS, 49152, torch.float32, 16, 132) == 144
+        assert trb.unit_tile(256, 3, 1, 3072, torch.float32, 16, 132) == 64
+    assert tms.stage_tile(64, V1_KS, V1_DS, 49152, torch.float32, 16, 132) == planned
+    assert trb.unit_tile(256, 3, 1, 3072, torch.float32, 16, 132) == 126
 
 
 def test_kernel_bench_reads_registers_and_spills():
@@ -481,5 +649,6 @@ def test_build_targets_sm90a_and_lists_every_source():
     names = sorted(p.rsplit("/", 1)[-1] for p in build._sources())
     assert names == ["mrf_stage.cu", "resblock.cu"]
     headers = sorted(p.rsplit("/", 1)[-1] for p in os.listdir(build.CSRC_DIR) if p.endswith(".cuh"))
-    assert headers == ["conv_tile.cuh", "mma_conv.cuh", "mma_conv_f32.cuh"]  # all hashed into the stamp
+    # all hashed into the stamp; the mma.sync f32 core (mma_conv_f32.cuh) is gone
+    assert headers == ["conv_tile.cuh", "hopper.cuh", "mma_conv.cuh", "wgmma_conv_f32.cuh"]
     assert build.BUILD_DIR.endswith("build/torch_kernels")

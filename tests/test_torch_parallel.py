@@ -133,12 +133,14 @@ def test_kernel_wrappers_launch_on_the_operands_device(kernel, monkeypatch):
             return 0
         return fn
 
-    lib = types.SimpleNamespace(evt_residual_unit=launch("unit"), evt_mrf_stage=launch("stage"))
+    lib = types.SimpleNamespace(evt_residual_unit_f32=launch("unit"),
+                                evt_mrf_stage_f32=launch("stage"))
     monkeypatch.setattr(build, "load", lambda: lib)
     monkeypatch.setattr(torch.cuda, "device", Guard)
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda dev=None: types.SimpleNamespace(cuda_stream=0))
     monkeypatch.setattr(resblock, "sm_count", lambda dev: 132)
+    monkeypatch.setattr(mrf_stage, "sm_count", lambda dev: 132)
     rng = np.random.RandomState(0)
 
     def card(*shape):
