@@ -8,9 +8,9 @@ Phases (any failure exits non-zero and prints no result line):
   2. build    - compile the port's kernels from emotivoice_tpu_torch/csrc
                 with nvcc for sm_90a; count the tensor-core and TMA
                 instructions of each kernel instantiation in the SASS
-                (cuobjdump): fail if a bf16 one has no HMMA / HGMMA, or an
-                f32 one (the wgmma core) lacks HGMMA or UTMALDG or has an
-                HMMA (the mma.sync core it replaced);
+                (cuobjdump): fail if one, bf16 or f32, lacks HGMMA (wgmma)
+                or UTMALDG (TMA) or has an HMMA (the mma.sync cores the
+                wgmma cores replaced);
   3. kernels  - each kernel against its plain PyTorch version on the card,
                 at the main path's shapes (bench bucket: batch 16, 384 mel
                 frames) and at a ragged T, in f32 (TF32 off) and bf16;
@@ -298,9 +298,9 @@ def parse_sass_mma(sass: str) -> dict:
 
 
 def sass_faults(counts: dict) -> list:
-    """What [build] refuses: a kernel without instantiations of a dtype; a
-    bf16 instantiation without tensor-core instructions; an f32 one without
-    HGMMA (wgmma) or UTMALDG (TMA), or with HMMA (the mma.sync core)."""
+    """What [build] refuses: a kernel without instantiations of a dtype; an
+    instantiation, bf16 or f32, without HGMMA (wgmma) or UTMALDG (TMA), or
+    with HMMA (the mma.sync cores)."""
     faults = []
     for name in ("residual_unit_kernel", "mrf_stage_kernel"):
         for dname in ("bf16", "f32"):
@@ -308,10 +308,8 @@ def sass_faults(counts: dict) -> list:
             if not found:
                 faults.append(f"{name}: no {dname} instantiation")
             for c, n in sorted(found.items()):
-                if dname == "bf16" and not n["HMMA"] + n["HGMMA"]:
-                    faults.append(f"{name}<{c}, bf16>: no tensor-core instructions {n}")
-                if dname == "f32" and (not n["HGMMA"] or not n["UTMALDG"] or n["HMMA"]):
-                    faults.append(f"{name}<{c}, f32>: wants HGMMA and UTMALDG, no HMMA: {n}")
+                if not n["HGMMA"] or not n["UTMALDG"] or n["HMMA"]:
+                    faults.append(f"{name}<{c}, {dname}>: wants HGMMA and UTMALDG, no HMMA: {n}")
     return faults
 
 

@@ -10,18 +10,18 @@
 // reference rounds (after each conv, after its bias add, after each
 // residual add; no rounding at all when T is float).
 //
-// Both storage types run their convs on the tensor cores, through one
-// implicit-GEMM core each with the same epilogue contract: mma_conv() on
-// bf16 (mma_conv.cuh, mma.sync m16n8k16, cp.async weight ring) and
-// wg_conv() on float (wgmma_conv_f32.cuh, wgmma on a 3xTF32 split, which
-// keeps f32 accuracy, weights by TMA through a producer's mbarrier ring).
-// There is no other conv loop.
+// Both storage types run their convs on the tensor cores through one Hopper
+// implicit-GEMM core each, of one block shape and one epilogue contract:
+// wg_conv_bf16() (wgmma_conv_bf16.cuh, wgmma m64nNk16 with the HIO weights
+// read MN-major) and wg_conv() on float (wgmma_conv_f32.cuh, wgmma on a
+// 3xTF32 split, which keeps f32 accuracy). Both take the weights by TMA
+// through a producer's mbarrier ring and A from registers. There is no other
+// conv loop.
 //
-// This header holds what the kernels share: the bf16 block shape, the bf16
-// activation tile's layout in shared memory (rows of 16-byte chunks,
-// XOR-swizzled), pairs of adjacent channels as the epilogues see them
-// (lrelu2 and add2 serve both types), the cp.async / ldmatrix wrappers, the
-// bf16 weight ring's state and the count dispatch of the chunk loops.
+// This header holds what the kernels share: the block shape (two consumer
+// warpgroups and a producer warpgroup), pairs of adjacent channels as the
+// epilogues see them (lrelu2 and add2 serve both types), the ldmatrix and
+// stmatrix wrappers and the count dispatch of the chunk loops.
 
 #pragma once
 
@@ -33,61 +33,17 @@
 
 namespace evt {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
 constexpr float kSlope = 0.1f;
+
+constexpr int kConsumerWGs = 2;
+constexpr int kConsumers = 128 * kConsumerWGs;  // threads 0..255
+constexpr int kWgBlock = kConsumers + 128;      // + the producer warpgroup
+constexpr int kConsumerBar = 1;                 // named barrier of the consumers
 
 using bf16 = __nv_bfloat16;
 using bf16x2 = __nv_bfloat162;
 
-// Tiling of a conv core per channel count and storage type: kWN warps across
-// C_out, each with kNT n8 tiles (kWN * kNT * 8 == C), and kMT m16 tiles per
-// warp; the weight ring has kStages stages of kKC rows of W flattened to
-// (K*C_in, C_out). Specialised beside each core.
-template <int C, typename T> struct MmaCfg;
-
-template <int C, typename T> struct MmaTile : MmaCfg<C, T> {
-  using Cfg = MmaCfg<C, T>;
-  // Depth of one mma.sync: k16 on bf16.
-  static constexpr int kStep = 32 / sizeof(T);
-  // Row stride of a ring stage in values of T; rows are XOR-swizzled for
-  // ldmatrix.trans.
-  static constexpr int kLd = C;
-  static_assert(Cfg::kWN * Cfg::kNT * 8 == C, "warps must tile C_out");
-  static_assert(Cfg::kKC % kStep == 0 && Cfg::kStages >= 2, "ring of whole mma steps");
-  static constexpr int kWM = kWarps / Cfg::kWN;
-  static constexpr int kPassRows = kWM * Cfg::kMT * 16;
-  static constexpr int kRingElems = Cfg::kStages * Cfg::kKC * kLd;
-};
-
-// Values of type T in one 16-byte chunk, the unit of cp.async, of ldmatrix
-// rows and of the tile's swizzle.
-template <typename T> struct Chunk { static constexpr int kElems = 16 / sizeof(T); };
-
-// Index of the 16-byte chunk ch of row r in a [rows][C] buffer of T.
-// XOR-swizzled so that any 8 consecutive rows at one chunk fall in 8
-// different bank groups.
-template <int C, typename T> __device__ __forceinline__ int chunk_at(int r, int ch) {
-  constexpr int kChunks = C / Chunk<T>::kElems;
-  const int sw = kChunks >= 8 ? (r & 7) : ((r >> 1) & (kChunks - 1));
-  return r * kChunks + (ch ^ sw);
-}
-
-// Element index of (row r, channel c) in such a buffer.
-template <int C, typename T> __device__ __forceinline__ int elem_at(int r, int c) {
-  constexpr int P = Chunk<T>::kElems;
-  return chunk_at<C, T>(r, c / P) * P + (c % P);
-}
-
-// Channels (co, co + 1), co even, as the cores hand them to an epilogue.
-template <typename T> struct PairOf;
-template <> struct PairOf<bf16> { using type = bf16x2; };
-
-// The pair at p (aligned to the pair's size).
-__device__ __forceinline__ bf16x2& pair_at(bf16* p) { return *reinterpret_cast<bf16x2*>(p); }
-
-template <typename T> __device__ __forceinline__ typename PairOf<T>::type zero2();
-template <> __device__ __forceinline__ bf16x2 zero2<bf16>() { return __float2bfloat162_rn(0.f); }
+__host__ __device__ __forceinline__ int cdiv(int a, int b) { return (a + b - 1) / b; }
 
 __device__ __forceinline__ float lrelu(float v) { return fmaxf(v, v * kSlope); }
 
@@ -105,24 +61,6 @@ __device__ __forceinline__ float2 add2(float2 a, float2 b) {
   return make_float2(a.x + b.x, a.y + b.y);
 }
 
-// The values of one 16-byte chunk as f32, and back (rounded to T).
-__device__ __forceinline__ void unpack_chunk(const uint4& v, float (&f)[8], bf16) {
-  const bf16x2* h = reinterpret_cast<const bf16x2*>(&v);
-#pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    const float2 p = __bfloat1622float2(h[q]);
-    f[2 * q] = p.x;
-    f[2 * q + 1] = p.y;
-  }
-}
-__device__ __forceinline__ uint4 pack_chunk(const float (&f)[8], bf16) {
-  uint4 v;
-  bf16x2* h = reinterpret_cast<bf16x2*>(&v);
-#pragma unroll
-  for (int q = 0; q < 4; ++q) h[q] = __floats2bfloat162_rn(f[2 * q], f[2 * q + 1]);
-  return v;
-}
-
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
@@ -135,41 +73,16 @@ __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
                : "r"(addr));
 }
 
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N> __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Start copying global rows [g0, g0 + n) of one batch row into rows
-// [row0, row0 + n) of a swizzled tile with cp.async, as one commit group;
-// rows outside [0, T) are set to zero (the convs' zero padding). The rows
-// are there after a cp_async_wait that covers the group and a barrier.
-template <int C, typename T>
-__device__ void load_rows_async(T* dst, int row0, const T* __restrict__ xb, int g0, int n,
-                                int T_len) {
-  constexpr int P = Chunk<T>::kElems;
-  constexpr int kChunks = C / P;
-  for (int i = threadIdx.x; i < n * kChunks; i += kThreads) {
-    const int r = i / kChunks, ch = i % kChunks;
-    const int g = g0 + r;
-    T* p = dst + P * chunk_at<C, T>(row0 + r, ch);
-    if (g >= 0 && g < T_len)
-      cp_async16(smem_u32(p), xb + (size_t)g * C + ch * P);
-    else
-      *reinterpret_cast<uint4*>(p) = make_uint4(0u, 0u, 0u, 0u);
-  }
-  cp_async_commit();
+// The same four matrices stored: lane l gives the address of row l % 8 of
+// matrix l / 8 and holds word l % 4 of row l / 4 of each.
+__device__ __forceinline__ void stsm_x4(uint32_t addr, const uint32_t (&r)[4]) {
+  asm volatile("stmatrix.sync.aligned.m8n8.x4.shared.b16 [%0], {%1, %2, %3, %4};\n"
+               ::"r"(addr), "r"(r[0]), "r"(r[1]), "r"(r[2]), "r"(r[3])
+               : "memory");
 }
 
 // f(std::integral_constant<int, n>{}) for a runtime n in [0, N]: lets a loop
-// over n m16 tiles unroll without a branch per tile.
+// over n m64 tiles unroll without a branch per tile.
 template <int N, typename F> __device__ __forceinline__ void with_count(int n, F&& f) {
   if constexpr (N == 0) {
     f(std::integral_constant<int, 0>{});
@@ -180,15 +93,5 @@ template <int N, typename F> __device__ __forceinline__ void with_count(int n, F
       with_count<N - 1>(n, f);
   }
 }
-
-// The weight ring of a block: kStages stages of kKC rows of W
-// (MmaTile<C, T>::kRingElems values of T). The convs a block runs stream
-// through it without a gap: while one conv multiplies its last chunks, the
-// first kStages-1 chunks of the next one are already in flight.
-template <typename T> struct WeightRing {
-  T* stages;
-  int head;     // stage of the next chunk to consume
-  bool primed;  // the next conv's first kStages-1 chunks are in flight
-};
 
 }  // namespace evt

@@ -1,11 +1,12 @@
-// Hopper (sm_90a) primitives of the f32 MRF conv core (wgmma_conv_f32.cuh),
-// which replaces the MXU matmuls of the TPU kernels
+// Hopper (sm_90a) primitives of the MRF conv cores (wgmma_conv_f32.cuh,
+// wgmma_conv_bf16.cuh), which replace the MXU matmuls of the TPU kernels
 // emotivoice_tpu/ops/pallas/resblock.py (fused_residual_unit) and
-// emotivoice_tpu/ops/pallas/packed_stage.py (fused_mrf_stage). That core is
-// bound by operations (3 * FLOP / 495 TFLOP/s as a 3xTF32 split); these
-// wrappers give it the only way to that rate, wgmma, fed by TMA and
-// mbarriers instead of per-thread copies and block-wide barriers. Thin
-// inline-PTX wrappers, one instruction each, named as in the PTX ISA:
+// emotivoice_tpu/ops/pallas/packed_stage.py (fused_mrf_stage). Both cores
+// are bound by operations (bf16: FLOP / 989 TFLOP/s; f32: 3 * FLOP / 495
+// TFLOP/s as a 3xTF32 split); these wrappers give them the only way to those
+// rates, wgmma, fed by TMA and mbarriers instead of per-thread copies and
+// block-wide barriers. Thin inline-PTX wrappers, one instruction each, named
+// as in the PTX ISA:
 //
 //  - mbarrier: init, arrive, arrive.expect_tx (a TMA load's bytes), and
 //    try_wait.parity in a loop. A phase is named by its parity: a fresh
@@ -16,17 +17,20 @@
 //    completing on an mbarrier. Out-of-bounds elements of a box arrive as
 //    zeros (the map's OOB fill is NONE). No kernel multicasts across a
 //    cluster: the weight stream from L2 does not limit them (PERF.md).
-//  - wgmma: fence, commit_group, wait_group, and mma_async
-//    m64nNk8.f32.tf32.tf32 with A from registers and B from a shared-memory
-//    descriptor, for N = 32, 64, 128, 256. Per warp w of the warpgroup, A is
-//    rows 16w..16w+15 in mma.sync m16n8k8's a0-a3 layout, (g, t), (g+8, t),
-//    (g, t+4), (g+8, t+4) with g = lane/4, t = lane%4; D holds, for each n8
-//    block j, columns 8j+2t, 8j+2t+1 of rows g (d[4j], d[4j+1]) and g+8
-//    (d[4j+2], d[4j+3]). The registers of A and D belong to the tensor cores
-//    from the mma to the wait_group that retires it: fence_regs() keeps the
-//    compiler from moving reads of D across that wait.
-//  - The shared-memory matrix descriptor of a K-major tile with 32, 64 or
-//    128-byte swizzle.
+//  - wgmma: fence, commit_group, wait_group, and mma_async with A from
+//    registers and B from a shared-memory descriptor, for N = 32, 64, 128,
+//    256: m64nNk8.f32.tf32.tf32 (B K-major, the only order tf32 takes) and
+//    m64nNk16.f32.bf16.bf16 with B transposed, i.e. MN-major (N contiguous:
+//    the HIO weights as they are). Per warp w of the warpgroup, A is rows
+//    16w..16w+15 in mma.sync's layout, (g, t), (g+8, t), (g, t+4), (g+8,
+//    t+4) with g = lane/4, t = lane%4, where t counts 32-bit words (one tf32
+//    value, two bf16 values); D holds, for each n8 block j, columns 8j+2t,
+//    8j+2t+1 of rows g (d[4j], d[4j+1]) and g+8 (d[4j+2], d[4j+3]). The
+//    registers of A and D belong to the tensor cores from the mma to the
+//    wait_group that retires it: fence_regs() keeps the compiler from moving
+//    reads of D across that wait.
+//  - The shared-memory matrix descriptors of a K-major tile with 32, 64 or
+//    128-byte swizzle, and of an MN-major one with 64 or 128-byte swizzle.
 //  - On the host: cuTensorMapEncodeTiled, reached through
 //    cudaGetDriverEntryPoint so that the library links only -lcudart.
 
@@ -126,6 +130,13 @@ template <int R> __device__ __forceinline__ void fence_regs(float (&d)[R]) {
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
+// The same for A fragments: every write of them lands before this point, so
+// none is scheduled between wgmma_fence() and the wgmma that reads it.
+template <int R> __device__ __forceinline__ void fence_regs(uint32_t (&a)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(a[i])::"memory");
+}
+
 // Descriptor of a K-major tile in shared memory: rows of `swizzle` bytes
 // (32, 64 or 128; the tile's K extent), 8-row groups `swizzle` * 8 bytes
 // apart, the tile aligned to its swizzle pattern (base offset 0). The leading
@@ -134,6 +145,19 @@ template <int R> __device__ __forceinline__ void fence_regs(float (&d)[R]) {
 __device__ __forceinline__ uint64_t smem_desc_kmajor(uint32_t addr, int swizzle) {
   const uint64_t layout = swizzle == 128 ? 1 : swizzle == 64 ? 2 : 3;
   return (uint64_t)((addr >> 4) & 0x3FFF) | (1ull << 16) |
+         ((uint64_t)((8 * swizzle) >> 4) << 32) | (layout << 62);
+}
+
+// Descriptor of an MN-major tile (B with N contiguous) in shared memory, as
+// TMA writes boxes of `swizzle` bytes (64 or 128) of N by rows of K: the
+// swizzle atom is swizzle / 2 bf16 columns x 8 rows of K, the 8-row groups of
+// one atom `swizzle` * 8 bytes apart (the stride byte offset), the atoms
+// along N `atom_bytes` apart (the leading byte offset; unused where N is one
+// atom wide). The tile is aligned to its swizzle pattern (base offset 0); a
+// k16 step starts 16 rows further.
+__device__ __forceinline__ uint64_t smem_desc_mnmajor(uint32_t addr, int swizzle, int atom_bytes) {
+  const uint64_t layout = swizzle == 128 ? 1 : 2;
+  return (uint64_t)((addr >> 4) & 0x3FFF) | ((uint64_t)((atom_bytes >> 4) & 0x3FFF) << 16) |
          ((uint64_t)((8 * swizzle) >> 4) << 32) | (layout << 62);
 }
 
@@ -225,6 +249,95 @@ template <> struct Wgmma<256> {
   }
 };
 
+// d += a * b on the tensor cores in bf16, N columns, B MN-major (imm-trans-b
+// 1): one wgmma.mma_async m64nNk16.
+template <int N> struct WgmmaBf16;
+
+template <> struct WgmmaBf16<32> {
+  static __device__ __forceinline__ void run(float (&d)[16], const uint32_t (&a)[4], uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+
+template <> struct WgmmaBf16<64> {
+  static __device__ __forceinline__ void run(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+
+template <> struct WgmmaBf16<128> {
+  static __device__ __forceinline__ void run(float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+
+template <> struct WgmmaBf16<256> {
+  static __device__ __forceinline__ void run(float (&d)[128], const uint32_t (&a)[4], uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+        "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+        "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+        "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+        "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+        "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+          "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+          "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+          "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+          "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+          "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+          "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+          "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+          "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+
 // cuTensorMapEncodeTiled of the driver, or nullptr where the driver has none.
 using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                    const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
@@ -253,27 +366,38 @@ inline CUtensorMapSwizzle swizzle_mode(int bytes) {
                        : CU_TENSOR_MAP_SWIZZLE_32B;
 }
 
-// A map over a row-major f32 tensor of `rank` (2 or 3) dimensions, innermost
-// first, each box `box` elements, rows swizzled by the box's inner bytes.
-// Returns cudaSuccess, or cudaErrorNotSupported / cudaErrorInvalidValue.
-inline cudaError_t encode_f32_map(CUtensorMap* map, const void* base, int rank,
-                                  const uint64_t* dims, const uint32_t* box) {
+// A map over a row-major tensor of `rank` (2 or 3) dimensions of `type`
+// (`elem` bytes each), innermost first, each box `box` elements, rows
+// swizzled by the box's inner bytes. Returns cudaSuccess, or
+// cudaErrorNotSupported / cudaErrorInvalidValue.
+inline cudaError_t encode_map(CUtensorMap* map, CUtensorMapDataType type, int elem,
+                              const void* base, int rank, const uint64_t* dims,
+                              const uint32_t* box) {
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return cudaErrorNotSupported;
   cuuint64_t gdim[3], gstride[2];
   cuuint32_t bdim[3], estride[3] = {1, 1, 1};
-  uint64_t stride = sizeof(float);
+  uint64_t stride = elem;
   for (int i = 0; i < rank; ++i) {
     gdim[i] = dims[i];
     bdim[i] = box[i];
     if (i > 0) gstride[i - 1] = stride;
     stride *= dims[i];
   }
-  CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, rank, const_cast<void*>(base), gdim, gstride,
-                  bdim, estride, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                  swizzle_mode(box[0] * (int)sizeof(float)), CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  CUresult r = fn(map, type, rank, const_cast<void*>(base), gdim, gstride, bdim, estride,
+                  CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle_mode(box[0] * elem),
+                  CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+inline cudaError_t encode_f32_map(CUtensorMap* map, const void* base, int rank,
+                                  const uint64_t* dims, const uint32_t* box) {
+  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, base, rank, dims, box);
+}
+
+inline cudaError_t encode_bf16_map(CUtensorMap* map, const void* base, int rank,
+                                   const uint64_t* dims, const uint32_t* box) {
+  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, base, rank, dims, box);
 }
 
 }  // namespace sm90

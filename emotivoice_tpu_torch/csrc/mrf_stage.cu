@@ -21,33 +21,35 @@
 // k = 3 / 7 / 11), and shrinks by one unit's reach after each unit, so the
 // last unit lands exactly on the tile. Rows outside [0, T) are held at zero
 // in every conv input (the zero padding of each conv; the JAX validity mask
-// at packed_stage.py:225-239). The chain outputs sum into an f32
-// accumulator in shared memory; the tile is written to device memory once.
-// The 18 intermediates never leave the SM.
+// at packed_stage.py:225-239). The 18 intermediates never leave the SM.
 //
-// Every conv runs on the tensor cores through mma_conv(): ldmatrix from
-// swizzled tiles of the chain activation and of the intermediate in shared
-// memory, weights through a 2-stage cp.async ring (a unit's weights, 180 KB
-// in bf16 at k=11 C=64, do not fit beside the tile). The ring streams on from
-// each conv into the next, across units and chains.
+// Both dtypes run the same block: two consumer warpgroups run every conv
+// with wgmma on the chain activation and the intermediate in shared memory,
+// each chain's tile arrives by TMA from a 3D map over (B, T, C) (its zero
+// fill is the padding at the sequence ends), and a producer thread streams
+// the 18 convs' weights by TMA through an mbarrier ring across units and
+// chains with no gap (a unit's weights, 180 KB in bf16 at k=11 C=64, do not
+// fit beside the tile). N = C_out = 64 or 32 per wgmma. The chain sum stays
+// in y, in device memory, each element with the one thread that adds to it:
+// y = c0, y += c1, ..., the last sum divided by the number of chains; that
+// leaves shared memory to the tiles, planned in whole 64-row wgmma tiles
+// (stage_tile) so that the k=11 chain's first conv, tile + 110 rows, fills
+// most of its last m64 tile.
 //
-// bf16 (mma_conv.cuh): mma.sync m16n8k16, ring stages of 128 rows of W (two
-// taps at C=64, four at C=32). The tile is 320 rows at C=64 and 768 at C=32
-// (the k=11 chain's first conv covers 1.34x / 1.14x the tile's rows).
+// bf16 (wgmma_conv_bf16.cuh): wgmma m64nNk16; each conv's HIO weights are
+// read MN-major through its own map (StageArgsBf16 holds the 18 maps), as
+// they are. The chain sum rounds as the plain version does: bf16 adds, then
+// the division in f32, rounded to bf16.
 //
 // f32 (wgmma_conv_f32.cuh): wgmma on a 3xTF32 split, three products per f32
 // product, which keeps the f32 path's 2e-4 agreement with its plain version.
-// Each chain's tile arrives by TMA from a 3D map over (B, T, C) (its zero
-// fill is the padding at the sequence ends). The 18 convs' weights are one
-// buffer, (taps, C_out, C_in) K-major, packed by the wrapper in the order the
-// block runs them, with one 2D map; StageArgsF32 holds each conv's first
-// tap. The producer streams them through the ring across units and chains
-// with no gap. N = C_out = 64 or 32 per wgmma; the tile is planned in whole
-// 64-row wgmma tiles (stage_tile) so that the k=11 chain's first conv, tile +
-// 110 rows, fills most of its last m64 tile.
+// The 18 convs' weights are one buffer, (taps, C_out, C_in) K-major, packed
+// by the wrapper in the order the block runs them, with one 2D map;
+// StageArgsF32 holds each conv's first tap. The chain sum is summed in f32
+// and multiplied by 1 / n.
 
 #include "conv_tile.cuh"
-#include "mma_conv.cuh"
+#include "wgmma_conv_bf16.cuh"
 #include "wgmma_conv_f32.cuh"
 
 namespace evt {
@@ -55,11 +57,13 @@ namespace evt {
 constexpr int kMaxChains = 4;
 constexpr int kMaxUnits = 4;
 
-struct StageArgs {
-  const void* w1[kMaxChains][kMaxUnits];
-  const void* b1[kMaxChains][kMaxUnits];
-  const void* w2[kMaxChains][kMaxUnits];
-  const void* b2[kMaxChains][kMaxUnits];
+constexpr int kMaxConvs = 2 * kMaxChains * kMaxUnits;
+
+// The bf16 kernel's arguments: per conv, in the order the block runs them
+// (chains, units, w1 before w2), the map over its HIO weight and its bias.
+struct StageArgsBf16 {
+  CUtensorMap w[kMaxConvs];
+  const bf16* b[kMaxConvs];
   int k[kMaxChains];
   int d[kMaxChains][kMaxUnits];
   int n_units[kMaxChains];
@@ -67,119 +71,164 @@ struct StageArgs {
 };
 
 // Per-side halo of chain j: sum over its units of (k-1)/2*(d+1). A is
-// StageArgs or StageArgsF32.
+// StageArgsBf16 or StageArgsF32.
 template <typename A> __host__ __device__ inline int chain_halo(const A& a, int j) {
   int h = 0;
   for (int u = 0; u < a.n_units[j]; ++u) h += (a.k[j] - 1) / 2 * (a.d[j][u] + 1);
   return h;
 }
 
-template <int C, typename T>
-__global__ void __launch_bounds__(kThreads)
-mrf_stage_kernel(const T* __restrict__ x, T* __restrict__ y, const StageArgs a,
-                 int T_len, int tile, int halo) {
-  using Pair = typename PairOf<T>::type;
-  constexpr int P = Chunk<T>::kElems;
-  constexpr int kChunks = C / P;
-  extern __shared__ float smem[];
-  const int n_x = tile + 2 * halo;
-  T* xs = reinterpret_cast<T*>(smem);  // chain activation, global row t0 - halo + i
-  T* mid = xs + n_x * C;               // lrelu(conv1 + b1), same row indexing
-  float* acc = reinterpret_cast<float*>(mid + n_x * C);  // sum of chain outputs, [tile][C]
-  WeightRing<T> ring{reinterpret_cast<T*>(acc + tile * C), 0, false};  // kRingElems
-
-  const int b = blockIdx.y;
-  const int t0 = blockIdx.x * tile;
-  const int g_base = t0 - halo;  // global row of xs[0] and mid[0]
-  const T* xb = x + (size_t)b * T_len * C;
-  T* yb = y + (size_t)b * T_len * C;
-
-  for (int i = threadIdx.x; i < tile * C / 4; i += kThreads)
-    reinterpret_cast<float4*>(acc)[i] = make_float4(0.f, 0.f, 0.f, 0.f);
-
-  for (int j = 0; j < a.n_chains; ++j) {
-    const int K = a.k[j];
-    const int hj = chain_halo(a, j);
-    int lo = halo - hj;           // first live row of the chain in xs
-    int ext = tile + 2 * hj;      // live rows
-    __syncthreads();              // previous chain's accumulate has finished
-    load_rows_async<C>(xs, lo, xb, g_base + lo, ext, T_len);
-    cp_async_wait<0>();           // x rows (and the primed weight chunks) have landed
-    for (int u = 0; u < a.n_units[j]; ++u) {
-      const int d = a.d[j][u];
-      const int h1 = (K - 1) / 2 * d, h2 = (K - 1) / 2;
-      const T* w1 = (const T*)a.w1[j][u];
-      const T* b1 = (const T*)a.b1[j][u];
-      const T* w2 = (const T*)a.w2[j][u];
-      const T* b2 = (const T*)a.b2[j][u];
-      // the conv after this unit's conv2: the next unit's or chain's conv1
-      const bool last_unit = u + 1 == a.n_units[j];
-      const bool last_chain = j + 1 == a.n_chains;
-      const T* w_next = (const T*)(!last_unit   ? a.w1[j][u + 1]
-                                   : !last_chain ? a.w1[j + 1][0]
-                                                 : nullptr);
-      const int k_next = !last_unit ? K : !last_chain ? a.k[j + 1] : 0;
-      const int m0 = lo + h1;     // first conv1 output row
-      mma_conv<C, true>(xs, lo, ext - 2 * h1, w1, b1, K, d, ring, w2, K,
-                        [&](int m, int co, Pair v) {
-        const int row = m0 + m;
-        const int g = g_base + row;
-        pair_at(mid + elem_at<C, T>(row, co)) = (g >= 0 && g < T_len) ? lrelu2(v) : zero2<T>();
-      });
-      const int r0 = m0 + h2;     // first conv2 output row
-      mma_conv<C, false>(mid, m0, ext - 2 * h1 - 2 * h2, w2, b2, K, 1, ring, w_next, k_next,
-                         [&](int r, int co, Pair v) {
-        const int row = r0 + r;
-        const int g = g_base + row;
-        Pair& xv = pair_at(xs + elem_at<C, T>(row, co));
-        xv = (g >= 0 && g < T_len) ? add2(xv, v) : zero2<T>();
-      });
-      lo += h1 + h2;
-      ext -= 2 * (h1 + h2);
-    }
-    // lo == halo and ext == tile here: the chain output is the tile; the
-    // last mma_conv ended with a barrier.
-    for (int i = threadIdx.x; i < tile * kChunks; i += kThreads) {
-      const int r = i / kChunks, ch = i % kChunks;
-      float f[P];
-      unpack_chunk(*reinterpret_cast<const uint4*>(xs + P * chunk_at<C, T>(halo + r, ch)), f, T());
-      float* dst = acc + r * C + ch * P;
-#pragma unroll
-      for (int q = 0; q < P; ++q) dst[q] += f[q];
-    }
-  }
-  __syncthreads();
-  const float inv = 1.f / (float)a.n_chains;
-  for (int i = threadIdx.x; i < tile * kChunks; i += kThreads) {
-    const int r = i / kChunks, ch = i % kChunks;
-    const int g = t0 + r;
-    if (g >= T_len) continue;
-    const float* src = acc + r * C + ch * P;
-    float f[P];
-#pragma unroll
-    for (int q = 0; q < P; ++q) f[q] = src[q] * inv;
-    *reinterpret_cast<uint4*>(yb + (size_t)g * C + ch * P) = pack_chunk(f, T());
-  }
-}
-
-template <int C, typename T>
-static int launch(const void* x, void* y, const StageArgs& a, int B, int T_len,
-                  int tile, int kc, cudaStream_t stream) {
+// Host: the largest chain halo, the tile's halo.
+template <typename A> inline int stage_halo(const A& a) {
   int halo = 0;
   for (int j = 0; j < a.n_chains; ++j) {
     const int h = chain_halo(a, j);
     if (h > halo) halo = h;
   }
-  const size_t n_x = (size_t)tile + 2 * halo;
-  if (kc != MmaCfg<C, T>::kKC) return (int)cudaErrorInvalidValue;
-  const size_t smem =
-      sizeof(T) * (C * 2 * n_x + MmaTile<C, T>::kRingElems) + sizeof(float) * C * tile;
-  void (*kern)(const T*, T*, const StageArgs, int, int, int) = mrf_stage_kernel<C, T>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  return halo;
+}
+
+// The stage's convs in the order the block runs them: f(q, K, n_out) with q
+// the conv's index in that order (unit u's conv1 and conv2 at 2u, 2u + 1,
+// counting units across chains).
+template <typename F>
+__device__ void for_each_conv(const StageArgsBf16& a, int tile, F f) {
+  int q = 0;
+  for (int j = 0; j < a.n_chains; ++j) {
+    const int K = a.k[j];
+    int ext = tile + 2 * chain_halo(a, j);
+    for (int u = 0; u < a.n_units[j]; ++u) {
+      const int h1 = (K - 1) / 2 * a.d[j][u], h2 = (K - 1) / 2;
+      f(q++, K, ext - 2 * h1);
+      f(q++, K, ext - 2 * h1 - 2 * h2);
+      ext -= 2 * (h1 + h2);
+    }
+  }
+}
+
+// bf16 y = a / n for the 8 values of a 16-byte chunk: the division in f32,
+// rounded to bf16 (as PyTorch divides a bf16 tensor).
+__device__ __forceinline__ uint4 div_chunk(uint4 a, float n) {
+  bf16x2* p = reinterpret_cast<bf16x2*>(&a);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(p[i]);
+    p[i] = __floats2bfloat162_rn(f.x / n, f.y / n);
+  }
+  return a;
+}
+
+// bf16: two consumer warpgroups and a producer warpgroup. Each chain's tile
+// arrives by TMA (x_map) as global rows t0 - halo ..; each conv's weights
+// stream through its own map (a.w).
+template <int C, typename T>
+__global__ void __launch_bounds__(kWgBlock, 1)
+mrf_stage_kernel(const __grid_constant__ CUtensorMap x_map, bf16* __restrict__ y,
+                 const __grid_constant__ StageArgsBf16 a, int T_len, int tile, int halo,
+                 int box_rows, int n_box, int stages) {
+  static_assert(std::is_same<T, bf16>::value, "the bf16 core's kernel");
+  constexpr int kChunks = C / 8;  // 16-byte chunks of a row
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const int rows = n_box * box_rows;
+  unsigned char* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const int tile_bytes = C * 2 * rows;
+  const ActTileBf16<C> xs{smem_u32(base), reinterpret_cast<char*>(base), rows};  // chain activation
+  const ActTileBf16<C> mid{xs.addr + tile_bytes, xs.ptr + tile_bytes, rows};    // lrelu(conv1 + b1)
+  RingBf16<C> ring;
+  ring.base = mid.addr + tile_bytes;
+  ring.bars = ring.base + stages * WgTileBf16<C>::kStageBytes;
+  ring.stages = stages;
+  const uint32_t x_bar = ring.bars + 16 * stages;
+
+  const int b = blockIdx.y;
+  const int t0 = blockIdx.x * tile;
+  const int g_base = t0 - halo;  // global row of xs and mid row 0
+  if (threadIdx.x == 0) {
+    ring.init();
+    sm90::mbar_init(x_bar, 1);
+    sm90::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers) {  // the producer warpgroup: one thread
+    if (threadIdx.x == kConsumers)
+      for_each_conv(a, tile, [&](int q, int K, int n) { ring.produce(&a.w[q], K, n); });
+  } else {  // the consumer warpgroups
+    bf16* yb = y + (size_t)b * T_len * C;
+    int q = 0;  // conv index
+    for (int j = 0; j < a.n_chains; ++j) {
+      const int K = a.k[j];
+      const int hj = chain_halo(a, j);
+      int lo = halo - hj;       // first live row of the chain in xs
+      int ext = tile + 2 * hj;  // live rows
+      // the previous chain's reads and in-place writes of xs are over before
+      // TMA writes it again
+      sm90::fence_proxy_async();
+      sm90::bar_sync(kConsumerBar, kConsumers);
+      if (threadIdx.x == 0) load_act_tile_bf16<C>(xs, &x_map, x_bar, b, g_base, box_rows, n_box);
+      sm90::mbar_wait(x_bar, j & 1);
+      for (int u = 0; u < a.n_units[j]; ++u, q += 2) {
+        const int d = a.d[j][u];
+        const int h1 = (K - 1) / 2 * d, h2 = (K - 1) / 2;
+        const int m0 = lo + h1;  // first conv1 output row
+        // mid = lrelu(conv1 + b1), then x += conv2 + b2 in place; both zero
+        // at rows outside [0, T)
+        wg_conv_bf16<C, true, false>(xs, lo, ext - 2 * h1, K, d, a.b[q], ring,
+                                     EpiBf16<C, true, false, true>{mid, m0, g_base + m0, T_len});
+        const int r0 = m0 + h2;  // first conv2 output row
+        wg_conv_bf16<C, false, false>(mid, m0, ext - 2 * h1 - 2 * h2, K, 1, a.b[q + 1], ring,
+                                      EpiBf16<C, false, true, true>{xs, r0, g_base + r0, T_len});
+        lo += h1 + h2;
+        ext -= 2 * (h1 + h2);
+      }
+      // lo == halo and ext == tile: the chain output is the tile; the last
+      // wg_conv_bf16 ended with a consumer barrier. The chain sum stays in y.
+      const bool last = j + 1 == a.n_chains;
+      for (int i = threadIdx.x; i < tile * kChunks; i += kConsumers) {
+        const int r = i / kChunks, ch = i % kChunks;
+        const int g = t0 + r;
+        if (g >= T_len) continue;
+        uint4 v = *reinterpret_cast<const uint4*>(xs.ptr + xs.off(halo + r, ch));
+        uint4* dst = reinterpret_cast<uint4*>(yb + (size_t)g * C + ch * 8);
+        if (j > 0) v = add_chunk(*dst, v);
+        *dst = last ? div_chunk(v, (float)a.n_chains) : v;
+      }
+    }
+  }
+}
+
+// Shared memory of the bf16 kernel: chain activation and intermediate (rows
+// per slab each), the ring, its barriers and x's, and the alignment slack.
+template <int C> size_t stage_smem_bf16(int rows, int stages) {
+  return 1024 + (size_t)C * 2 * 2 * rows + ring_bytes_bf16<C>(stages) + 8;
+}
+
+// w: each conv's HIO weight, in a's order; a.w is filled here.
+template <int C>
+static int launch_bf16(const void* x, void* y, const void* const* w, StageArgsBf16& a, int B,
+                       int T_len, int tile, int box_rows, int n_box, int stages, int kmt, int kc,
+                       cudaStream_t stream) {
+  const int halo = stage_halo(a);
+  if (kmt != WgCfgBf16<C>::kMT || kc != WgCfgBf16<C>::kKC || stages < 2 ||
+      stages > WgCfgBf16<C>::kStages || tile % 8 || box_rows % 8 || box_rows > 256 ||
+      n_box * box_rows < tile + 2 * halo)
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap x_map;
+  cudaError_t err = encode_act_map_bf16<C>(&x_map, x, B, T_len, box_rows);
+  int q = 0;
+  for (int j = 0; j < a.n_chains; ++j)
+    for (int u = 0; u < a.n_units[j]; ++u)
+      for (int i = 0; i < 2 && err == cudaSuccess; ++i, ++q)
+        err = encode_weight_map_bf16<C>(&a.w[q], w[q], a.k[j]);
+  if (err != cudaSuccess) return (int)err;
+  const size_t smem = stage_smem_bf16<C>(n_box * box_rows, stages);
+  void (*kern)(const CUtensorMap, bf16*, const StageArgsBf16, int, int, int, int, int, int) =
+      mrf_stage_kernel<C, bf16>;
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((T_len + tile - 1) / tile, B);
-  kern<<<grid, kThreads, smem, stream>>>((const T*)x, (T*)y, a, T_len, tile, halo);
+  kern<<<grid, kWgBlock, smem, stream>>>(x_map, (bf16*)y, a, T_len, tile, halo, box_rows, n_box,
+                                         stages);
   return (int)cudaGetLastError();
 }
 
@@ -211,9 +260,9 @@ __device__ void for_each_conv(const StageArgsF32& a, int tile, F f) {
   }
 }
 
-// f32: the kernel above on the wgmma core, two consumer warpgroups and a
-// producer warpgroup. Each chain's tile arrives by TMA (x_map) as global rows
-// t0 - halo ..; the weights stream from the packed buffer (w_map).
+// f32: the same block on the 3xTF32 core. Each chain's tile arrives by TMA
+// (x_map) as global rows t0 - halo ..; the weights stream from the packed
+// buffer (w_map).
 template <int C, typename T>
 __global__ void __launch_bounds__(kWgBlock, 1)
 mrf_stage_kernel(const __grid_constant__ CUtensorMap x_map,
@@ -319,11 +368,7 @@ template <int C>
 static int launch_f32(const void* x, void* y, const void* w, int taps, const StageArgsF32& a,
                       int B, int T_len, int tile, int box_rows, int n_box, int stages, int kmt,
                       int kc, cudaStream_t stream) {
-  int halo = 0;
-  for (int j = 0; j < a.n_chains; ++j) {
-    const int h = chain_halo(a, j);
-    if (h > halo) halo = h;
-  }
+  const int halo = stage_halo(a);
   if (kmt != WgCfg<C>::kMT || kc != WgCfg<C>::kKC || stages < 2 ||
       stages > WgCfg<C>::kStages || tile % 8 || box_rows % 8 || box_rows > 256 ||
       n_box * box_rows < tile + 2 * halo)
@@ -342,18 +387,6 @@ static int launch_f32(const void* x, void* y, const void* w, int taps, const Sta
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-static int dispatch_c(int C, const void* x, void* y, const StageArgs& a, int B,
-                      int T_len, int tile, int kc, cudaStream_t s) {
-  switch (C) {
-    case 32: return launch<32, T>(x, y, a, B, T_len, tile, kc, s);
-    case 64: return launch<64, T>(x, y, a, B, T_len, tile, kc, s);
-    case 128: return launch<128, T>(x, y, a, B, T_len, tile, kc, s);
-    case 256: return launch<256, T>(x, y, a, B, T_len, tile, kc, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
-
 }  // namespace evt
 
 // Plain C entry points (loaded with ctypes); each returns cudaGetLastError()
@@ -361,30 +394,40 @@ static int dispatch_c(int C, const void* x, void* y, const StageArgs& a, int B,
 //   ks:      kernel size per chain
 //   n_units: residual units per chain
 //   dils:    dilation per unit, chains one after another
+//   box_rows, n_box: the chain tile's TMA boxes; stages: ring stages;
+//   kmt, kc: the tiling the kernel was built with (WgCfgBf16<C>, WgCfg<C>)
 // bf16:
-//   ptrs:    per chain, per unit: w1, b1, w2, b2 (host array of device pointers)
-//   kc:      weight rows per ring stage, MmaCfg<C, bf16>::kKC
+//   ptrs:    per chain, per unit: w1, b1, w2, b2 (host array of device
+//            pointers; the weights HIO (K, C, C) as they are)
 extern "C" int evt_mrf_stage_bf16(const void* x, void* y, const void* const* ptrs,
                                   const int* ks, const int* n_units, const int* dils,
-                                  int n_chains, int B, int T_len, int C, int tile, int kc,
-                                  void* stream) {
+                                  int n_chains, int B, int T_len, int C, int tile, int box_rows,
+                                  int n_box, int stages, int kmt, int kc, void* stream) {
   if (n_chains < 1 || n_chains > evt::kMaxChains) return (int)cudaErrorInvalidValue;
-  evt::StageArgs a = {};
+  evt::StageArgsBf16 a = {};
+  const void* w[evt::kMaxConvs];
   a.n_chains = n_chains;
-  int p = 0, q = 0;
+  int p = 0, q = 0, u_all = 0;
   for (int j = 0; j < n_chains; ++j) {
     if (n_units[j] < 1 || n_units[j] > evt::kMaxUnits) return (int)cudaErrorInvalidValue;
     a.k[j] = ks[j];
     a.n_units[j] = n_units[j];
-    for (int u = 0; u < n_units[j]; ++u) {
-      a.d[j][u] = dils[q++];
-      a.w1[j][u] = ptrs[p++];
-      a.b1[j][u] = ptrs[p++];
-      a.w2[j][u] = ptrs[p++];
-      a.b2[j][u] = ptrs[p++];
+    for (int u = 0; u < n_units[j]; ++u, q += 2) {
+      a.d[j][u] = dils[u_all++];
+      w[q] = ptrs[p++];
+      a.b[q] = (const evt::bf16*)ptrs[p++];
+      w[q + 1] = ptrs[p++];
+      a.b[q + 1] = (const evt::bf16*)ptrs[p++];
     }
   }
-  return evt::dispatch_c<__nv_bfloat16>(C, x, y, a, B, T_len, tile, kc, (cudaStream_t)stream);
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (C) {
+#define EVT_CASE(c) \
+  case c: return evt::launch_bf16<c>(x, y, w, a, B, T_len, tile, box_rows, n_box, stages, kmt, kc, s);
+    EVT_CASE(32) EVT_CASE(64) EVT_CASE(128) EVT_CASE(256)
+#undef EVT_CASE
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 // f32:
@@ -392,8 +435,6 @@ extern "C" int evt_mrf_stage_bf16(const void* x, void* y, const void* const* ptr
 //            runs them; taps1 / taps2: per unit, chains one after another,
 //            the first tap of w1 / w2
 //   biases:  per unit, chains one after another: b1, b2 (device pointers)
-//   box_rows, n_box: the chain tile's TMA boxes; stages: ring stages;
-//   kmt, kc: the WgCfg<C> the kernel was built with
 extern "C" int evt_mrf_stage_f32(const void* x, void* y, const void* w, int taps,
                                  const void* const* biases, const int* taps1, const int* taps2,
                                  const int* ks, const int* n_units, const int* dils,

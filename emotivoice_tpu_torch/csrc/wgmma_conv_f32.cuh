@@ -1,7 +1,7 @@
 // Hopper conv core of the HiFi-GAN MRF kernels' f32 instantiation
 // (resblock.cu, mrf_stage.cu): wgmma on a 3xTF32 split, weights through TMA
-// into an mbarrier ring fed by a producer warp. The bf16 instantiation keeps
-// its own core (mma_conv.cuh).
+// into an mbarrier ring fed by a producer warp. The bf16 instantiation has a
+// core of the same shape without the split (wgmma_conv_bf16.cuh).
 //
 // Takes the place of the TPU kernels' MXU matmuls at f32 precision
 // (emotivoice_tpu/ops/pallas/resblock.py, _residual_unit_kernel, and
@@ -77,12 +77,8 @@ template <> struct WgCfg<64> { static constexpr int kMT = 2, kKC = 32, kStages =
 template <> struct WgCfg<128> { static constexpr int kMT = 1, kKC = 32, kStages = 4; };
 template <> struct WgCfg<256> { static constexpr int kMT = 1, kKC = 8, kStages = 4; };
 
-constexpr int kConsumerWGs = 2;
-constexpr int kConsumers = 128 * kConsumerWGs;  // threads 0..255
-constexpr int kWgBlock = kConsumers + 128;      // + the producer warpgroup
-constexpr int kTailWarps = 3;                   // warps 1-3 of the producer warpgroup
-constexpr int kSlab = 32;                       // channels per 128-byte activation slab
-constexpr int kConsumerBar = 1;                 // named barrier of the consumers
+constexpr int kTailWarps = 3;  // warps 1-3 of the producer warpgroup
+constexpr int kSlab = 32;      // channels per 128-byte activation slab
 
 template <int C> struct WgTile : WgCfg<C> {
   using Cfg = WgCfg<C>;
@@ -94,8 +90,6 @@ template <int C> struct WgTile : WgCfg<C> {
   static constexpr int kStageBytes = C * Cfg::kKC * 4;     // head; the tail as much again
   static_assert(kStageBytes % 1024 == 0, "stages stay aligned to the swizzle atoms");
 };
-
-__device__ __forceinline__ int cdiv(int a, int b) { return (a + b - 1) / b; }
 
 // A slab-major swizzled f32 activation tile in shared memory.
 struct ActTile {

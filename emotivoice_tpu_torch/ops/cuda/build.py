@@ -109,9 +109,9 @@ def build() -> str:
 def _declare(lib: ctypes.CDLL) -> None:
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     pi = ctypes.POINTER(i32)
-    lib.evt_residual_unit_bf16.argtypes = [vp] * 6 + [i32] * 7 + [vp]
+    lib.evt_residual_unit_bf16.argtypes = [vp] * 6 + [i32] * 11 + [vp]
     lib.evt_residual_unit_f32.argtypes = [vp] * 5 + [i32] * 11 + [vp]
-    lib.evt_mrf_stage_bf16.argtypes = [vp, vp, ctypes.POINTER(vp), pi, pi, pi] + [i32] * 6 + [vp]
+    lib.evt_mrf_stage_bf16.argtypes = [vp, vp, ctypes.POINTER(vp), pi, pi, pi] + [i32] * 10 + [vp]
     lib.evt_mrf_stage_f32.argtypes = ([vp, vp, vp, i32, ctypes.POINTER(vp), pi, pi, pi, pi, pi]
                                       + [i32] * 10 + [vp])
     for fn in (lib.evt_residual_unit_bf16, lib.evt_residual_unit_f32, lib.evt_mrf_stage_bf16,

@@ -2,6 +2,7 @@
 
   python -m emotivoice_tpu_torch.ops.cuda.kernel_bench [--dtype f32] [--only unit256 stage64]
       [--cfg "256:1,8,4;64:3,16,4"] [--tiles "stage64:168,240"] [--no-check] [--sass]
+      [--skip epilogue chain-sum]
 
 The short call to make after a change to a kernel, before the full
 `chip_smoke.py`: it builds the library, prints `ptxas -v` registers and
@@ -11,15 +12,19 @@ beside the cuDNN convolutions of the same function (TF32 off), per shape and
 summed per generator call, and the f32 wrappers' K-major weight relayout
 per generator call apart from kernel time. `--cfg` times a variant of the
 tiling instead: for f32 `C:kMT,kKC,kStages` replaces `WgCfg<C>`
-(wgmma_conv_f32.cuh), for bf16 `C:kWN,kNT,kMT,kKC,kStages` replaces
-`MmaCfg<C, bf16>` (mma_conv.cuh), in a copy of the sources (under
+(wgmma_conv_f32.cuh), for bf16 `C:kMT,kKC,kStages,kWait` replaces
+`WgCfgBf16<C>` (wgmma_conv_bf16.cuh), in a copy of the sources (under
 build/torch_kernels/variants/) and in the wrappers' mirror (`WG_CFG`,
-`MMA_CFG`), so two configurations can be compared within one call on one
+`WG_CFG_BF16`), so two configurations can be compared within one call on one
 card. `--tiles` times given tiles in place of the planners' (each shape's
-planner is replaced while it runs). `--sass` adds each instantiation's
-tensor-core and TMA instruction counts (HMMA, HGMMA, UTMALDG) and its most
-frequent SASS opcodes. Needs a CUDA card and nvcc; prints the card's name and
-power limit first.
+planner is replaced while it runs). `--skip epilogue chain-sum` builds
+the bf16 kernels without their epilogues or without the MRF stage's
+chain sum, for timing only (their results are wrong, so nothing is
+checked): what a part costs, on a card with no profiler. `--sass` adds
+each instantiation's tensor-core and TMA instruction counts (HMMA, HGMMA,
+UTMALDG) and its most frequent SASS opcodes. The ptxas summary lists every
+instantiation, bf16 and f32. Needs a CUDA card and nvcc; prints the card's
+name and power limit first.
 """
 
 from __future__ import annotations
@@ -48,10 +53,18 @@ UNIT_SHAPES = ((256, 8 * FRAMES), (128, 64 * FRAMES))  # (C, T) of stages 1-2
 STAGE_SHAPES = ((64, 128 * FRAMES), (32, 256 * FRAMES))  # stages 3-4
 DTYPES = {"f32": (torch.float32, "float", "f"), "bf16": (torch.bfloat16, "bf16", "13__nv_bfloat16")}
 CFG_LINE = {  # per dtype: the header holding the config struct, its line
-    torch.bfloat16: ("mma_conv.cuh", "template <> struct MmaCfg<%d, bf16> { static constexpr int "
-                     "kWN = %d, kNT = %d, kMT = %d, kKC = %d, kStages = %d; };"),
+    torch.bfloat16: ("wgmma_conv_bf16.cuh", "template <> struct WgCfgBf16<%d> { static constexpr int "
+                     "kMT = %d, kKC = %d, kStages = %d, kWait = %d; };"),
     torch.float32: ("wgmma_conv_f32.cuh", "template <> struct WgCfg<%d> { static constexpr int "
                     "kMT = %d, kKC = %d, kStages = %d; };"),
+}
+# Timing-only variants of the bf16 kernels (--skip): the file, a source line
+# and what replaces it, so that the part is left out
+SKIPS = {
+    "epilogue": ("wgmma_conv_bf16.cuh", "      if (rw >= n_out) continue;",
+                 "      if (rw >= -1) continue;"),
+    "chain-sum": ("mrf_stage.cu", "        if (g >= T_len) continue;\n        uint4 v =",
+                  "        if (g >= -1) continue;\n        uint4 v ="),
 }
 SYMBOL = re.compile(r"(residual_unit_kernel|mrf_stage_kernel)ILi(\d+)E(13__nv_bfloat16|f)E")
 
@@ -60,8 +73,8 @@ Cfg = Dict[int, Tuple[int, ...]]
 
 def parse_cfg(text: str, dtype: torch.dtype = torch.float32) -> Cfg:
     """'256:1,8,4;64:3,16,4' -> {256: (1, 8, 4), 64: (3, 16, 4)}: 3 values a C
-    for f32 (kMT, kKC, kStages), 5 for bf16 (kWN, kNT, kMT, kKC, kStages)."""
-    want = 3 if dtype == torch.float32 else 5
+    for f32 (kMT, kKC, kStages), 4 for bf16 (kMT, kKC, kStages, kWait)."""
+    want = 3 if dtype == torch.float32 else 4
     out = {}
     for part in filter(None, text.split(";")):
         c, vals = part.split(":")
@@ -83,19 +96,31 @@ def patch_header(header: str, cfg: Cfg, dtype: torch.dtype) -> str:
     return header
 
 
-def use_variant(cfg: Cfg, dtype: torch.dtype) -> None:
-    """Point the build at a patched copy of the sources and mirror cfg in the wrappers."""
-    tag = "_".join(f"{c}-" + "-".join(map(str, v)) for c, v in sorted(cfg.items()))
+def patch_skip(text: str, name: str) -> str:
+    """The source of SKIPS[name]'s file with that part left out."""
+    _, old, new = SKIPS[name]
+    if text.count(old) != 1:
+        raise ValueError(f"--skip {name}: the source line to patch is not there once")
+    return text.replace(old, new)
+
+
+def use_variant(cfg: Cfg, dtype: torch.dtype, skip=()) -> None:
+    """Point the build at a patched copy of the sources (cfg's config structs,
+    the parts in skip left out) and mirror cfg in the wrappers."""
+    tag = "_".join([f"{c}-" + "-".join(map(str, v)) for c, v in sorted(cfg.items())] + list(skip))
     root = os.path.join(build.BUILD_DIR, "variants", f"{dtype}_{tag}".replace("torch.", ""))
     shutil.rmtree(root, ignore_errors=True)
     shutil.copytree(build.CSRC_DIR, os.path.join(root, "csrc"))
-    path = os.path.join(root, "csrc", CFG_LINE[dtype][0])
-    with open(path) as f:
-        header = f.read()
-    with open(path, "w") as f:
-        f.write(patch_header(header, cfg, dtype))
+    patches = [(CFG_LINE[dtype][0], lambda t: patch_header(t, cfg, dtype))] if cfg else []
+    patches += [(SKIPS[name][0], lambda t, name=name: patch_skip(t, name)) for name in skip]
+    for fname, fn in patches:
+        path = os.path.join(root, "csrc", fname)
+        with open(path) as f:
+            text = f.read()
+        with open(path, "w") as f:
+            f.write(fn(text))
     build.CSRC_DIR, build.BUILD_DIR = os.path.join(root, "csrc"), os.path.join(root, "out")
-    (rb.WG_CFG if dtype == torch.float32 else rb.MMA_CFG[dtype]).update(cfg)
+    (rb.WG_CFG if dtype == torch.float32 else rb.WG_CFG_BF16).update(cfg)
     rb.unit_tile.cache_clear()
     ms.stage_tile.cache_clear()
 
@@ -174,20 +199,22 @@ def _rel_err(got, want) -> float:
     return float((got.float() - want.float()).abs().max() / want.float().abs().max())
 
 
-def l2_weight_bytes(name: str, c: int, t: int, k: int = 0, d: int = 0, n_sm: int = 132) -> int:
-    """Weight bytes the f32 kernels' blocks stream from L2 in one call at
-    batch BATCH, reckoned from the wrappers' tiles: every block reads each
-    conv's K x C x C f32 weights once per pass (the tails are made in shared
-    memory and stream nothing)."""
+def l2_weight_bytes(name: str, c: int, t: int, k: int = 0, d: int = 0, n_sm: int = 132,
+                    dtype: torch.dtype = torch.float32) -> int:
+    """Weight bytes the kernels' blocks stream from L2 in one call at batch
+    BATCH, reckoned from the wrappers' tiles: every block reads each conv's
+    K x C x C weights once per pass (the f32 tails are made in shared memory
+    and stream nothing)."""
+    item = dtype.itemsize
     if name == "unit":
-        tile = rb.unit_tile(c, k, d, t, torch.float32, BATCH, n_sm)
-        per_block = sum(-(-n // rb.pass_rows(c, torch.float32)) * k * c * c * 4
+        tile = rb.unit_tile(c, k, d, t, dtype, BATCH, n_sm)
+        per_block = sum(-(-n // rb.pass_rows(c, dtype)) * k * c * c * item
                         for n in (tile + 2 * ((k - 1) // 2), tile))
     else:
-        tile = ms.stage_tile(c, KS, DS, t, torch.float32, BATCH, n_sm)
+        tile = ms.stage_tile(c, KS, DS, t, dtype, BATCH, n_sm)
         rows = ms.stage_convs(tile, KS, DS)
         taps = [k for k, dils in zip(KS, DS) for _ in dils for _ in (1, 2)]
-        per_block = sum(-(-n // rb.pass_rows(c, torch.float32)) * k * c * c * 4
+        per_block = sum(-(-n // rb.pass_rows(c, dtype)) * k * c * c * item
                         for n, k in zip(rows, taps))
     return BATCH * -(-t // tile) * per_block
 
@@ -248,8 +275,7 @@ def bench(dtype: torch.dtype, dname: str, only, check: bool, tiles=None) -> None
                         w = _unit_weights(gen, k, c, dtype, dev)
                         wt = _oik(w)
                         tile = rb.unit_tile(c, k, d, t, dtype, BATCH, rb.sm_count(dev))
-                        l2 = (l2_weight_bytes(name, c, t, k, d, rb.sm_count(dev))
-                              if dtype == torch.float32 else 0)
+                        l2 = l2_weight_bytes(name, c, t, k, d, rb.sm_count(dev), dtype)
                         cases.append((
                             f"k={k} d={d} tile={tile}",
                             lambda x, w=w, k=k, d=d: rb.fused_residual_unit(x, *w, k, d),
@@ -268,7 +294,7 @@ def bench(dtype: torch.dtype, dname: str, only, check: bool, tiles=None) -> None
                                          for units, dils in zip(wts, DS) for u, d in zip(units, dils)],
                     sum(4 * k * c * c * len(dils) for k, dils in zip(KS, DS)) * BATCH * t,
                     lambda ws=ws: pack_stage_f32(ws),
-                    l2_weight_bytes(name, c, t, n_sm=rb.sm_count(dev)) if dtype == torch.float32 else 0)]
+                    l2_weight_bytes(name, c, t, n_sm=rb.sm_count(dev), dtype=dtype))]
             for tile in (tiles or {}).get(f"{name}{c}", (None,)):
                 with forced_tile(name, tile):
                     for label, fn, plain, lib, flop, relayout, l2 in cases:
@@ -290,11 +316,13 @@ def main(argv=None) -> int:
     p.add_argument("--dtype", choices=sorted(DTYPES), default="f32")
     p.add_argument("--only", nargs="*", default=[], help="unit256 unit128 stage64 stage32")
     p.add_argument("--cfg", default="", help="variant of the config struct: f32 C:kMT,kKC,kStages, "
-                   "bf16 C:kWN,kNT,kMT,kKC,kStages[;...]")
+                   "bf16 C:kMT,kKC,kStages,kWait[;...]")
     p.add_argument("--tiles", default="", help="time these tiles instead of the planners': "
                    "unit256:118,128;stage64:168,240 (totals then sum every tile)")
     p.add_argument("--no-check", action="store_true", help="time only")
     p.add_argument("--sass", action="store_true", help="opcode histogram per instantiation")
+    p.add_argument("--skip", nargs="*", default=[], choices=sorted(SKIPS),
+                   help="bf16: leave out a part (timing only, wrong results)")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("kernel_bench needs a CUDA card", file=sys.stderr)
@@ -304,22 +332,25 @@ def main(argv=None) -> int:
                          capture_output=True, text=True).stdout.strip())
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    if args.cfg:
-        use_variant(parse_cfg(args.cfg, dtype), dtype)
-        print(f"variant {args.cfg} of {CFG_LINE[dtype][0]}")
+    if args.skip and dtype != torch.bfloat16:
+        p.error("--skip patches the bf16 kernels")
+    if args.cfg or args.skip:
+        use_variant(parse_cfg(args.cfg, dtype), dtype, args.skip)
+        print(f"variant {args.cfg} of {CFG_LINE[dtype][0]}" + (
+            f"; without {', '.join(args.skip)}: timing only, results not checked" if args.skip else ""))
     build.load()
     print(f"build {build.build_seconds:.1f} s")
     for line in build.build_log.splitlines():
         if "warning" in line.lower() or "wgmma" in line.lower():
             print(f"ptxas {line.strip()}")
+    names = {m: n for n, m in (v[1:] for v in DTYPES.values())}
     for kernel, c, t, regs, spill in ptxas_summary(build.build_log):
-        if t == mangled:
-            print(f"ptxas {kernel}<{c}, {type_name}>: {regs} registers{'; ' + spill if spill else ''}")
+        print(f"ptxas {kernel}<{c}, {names[t]}>: {regs} registers{'; ' + spill if spill else ''}")
     if args.sass:
         lib = os.path.join(build.BUILD_DIR, build.LIB_NAME)
         for (kernel, c), (n, counts, top) in sorted(sass_histogram(lib, mangled).items()):
             print(f"sass {kernel}<{c}, {type_name}>: {n} instructions, {counts}, {top}")
-    bench(dtype, args.dtype, set(args.only), not args.no_check, parse_tiles(args.tiles))
+    bench(dtype, args.dtype, set(args.only), not (args.no_check or args.skip), parse_tiles(args.tiles))
     return 0
 
 

@@ -7,10 +7,11 @@ chunk plan and weight rolls are not carried over. The kernel is
 `emotivoice_tpu_torch/csrc/mrf_stage.cu`; its header comment states what
 bounds it on the H100 (operations: 252*C*C FLOP per row for the V1 stage)
 and what its design does about that (all chains run on one tile in shared
-memory; the tile is read once per chain and written once; every conv runs on
-the tensor cores: bf16 through `csrc/mma_conv.cuh` (`mma.sync`), f32 as a
-3xTF32 split through `csrc/wgmma_conv_f32.cuh` (`wgmma`, weights by TMA
-through a producer's ring). For f32 the wrapper packs all the stage's conv
+memory; the tile is read once per chain and the chain sum kept in y; every
+conv runs on the tensor cores with `wgmma`, weights by TMA through a
+producer's `mbarrier` ring: bf16 through `csrc/wgmma_conv_bf16.cuh`, one map
+per conv over its HIO weight as it is, f32 as a 3xTF32 split through
+`csrc/wgmma_conv_f32.cuh`). For f32 the wrapper packs all the stage's conv
 weights K-major into one buffer, (taps, C_out, C_in), in the order the
 kernel runs them (`pack_stage_f32`).
 
@@ -31,26 +32,21 @@ from emotivoice_tpu_torch.ops.cuda import build
 from emotivoice_tpu_torch.ops.cuda.resblock import (
     CHANNELS,
     H100_SMS,
-    SMEM_LIMIT,
-    WG_CFG,
     WGMMA_ROWS,
     _cdiv,
-    act_boxes,
     check_operands,
-    f32_ring_stages,
-    f32_stage_bytes,
     kmajor,
     pass_rows,
     refuse_grad,
     residual_unit_3xtf32,
     residual_unit_plain,
-    ring_rows,
     sm_count,
-    weight_smem,
+    tile_plan,
+    wg_cfg,
 )
 
-MAX_TILE = {torch.float32: 1024, torch.bfloat16: 768}
-TILE_STEP = {torch.float32: 8, torch.bfloat16: 64}  # tiles are whole multiples of this many rows
+MAX_TILE = {torch.float32: 1024, torch.bfloat16: 2048}
+TILE_STEP = 8  # tiles are whole multiples of this many rows (TMA boxes)
 MAX_CHAINS = 4  # kMaxChains in csrc/mrf_stage.cu
 MAX_UNITS = 4  # kMaxUnits
 
@@ -103,61 +99,42 @@ def stage_convs(tile: int, kernel_sizes, dilation_sizes):
     return rows
 
 
-def stage_plan_f32(c: int, halo: int, tile: int):
-    """(box_rows, n_box, stages, smem bytes) of the f32 kernel at `tile`: chain
-    activation and intermediate (haloed), 1 KB of alignment slack, x's
-    mbarrier and the ring. The chain sum stays in y, in device memory."""
-    box, n_box = act_boxes(tile + 2 * halo)
-    other = 1024 + c * 4 * 2 * box * n_box + 8
-    stages = f32_ring_stages(c, other)
-    return box, n_box, stages, other + stages * f32_stage_bytes(c)
-
-
-def stage_smem(c: int, halo: int, tile: int, dtype: torch.dtype) -> int:
-    """Shared memory of one block. bf16: chain activation and intermediate
-    (haloed), f32 chain sum, weights; f32: `stage_plan_f32`."""
-    if dtype == torch.float32:
-        return stage_plan_f32(c, halo, tile)[3]
-    return dtype.itemsize * c * 2 * (tile + 2 * halo) + 4 * c * tile + weight_smem(c)
+def stage_plan(c: int, halo: int, tile: int, dtype: torch.dtype):
+    """`tile_plan` of the kernel at `tile`: chain activation and intermediate,
+    tile + 2 * halo rows each. The chain sum stays in y, in device memory."""
+    return tile_plan(c, tile + 2 * halo, 2, dtype)
 
 
 @functools.lru_cache(maxsize=None)
 def stage_tile(c: int, kernel_sizes: Tuple[int, ...], dilation_sizes: Tuple[Tuple[int, ...], ...],
                t: int, dtype: torch.dtype = torch.float32, batch: int = 1,
                n_sm: int = H100_SMS) -> int:
-    """Time tile of the kernel, a multiple of TILE_STEP[dtype] rows.
+    """Time tile of the kernel, a multiple of TILE_STEP rows.
 
-    bf16: the largest (at most MAX_TILE, at most T rounded up) whose tiles
-    and weights fit in shared memory; at the V1 topology every conv of such
-    a tile is one pass of the core's rows. f32: of the tiles up to MAX_TILE
-    that fit beside a ring of at least two stages, the one with the least
-    waves * work, work = per conv (the k=11 chain's first, tile + 110 rows,
-    the largest) its m64 tiles plus one per pass for its weight stream.
+    Of the tiles up to MAX_TILE[dtype] (and T rounded up) that fit beside a
+    ring of at least two stages, the one with the least waves * work: waves
+    = ceil(blocks / n_sm), work = per conv (the k=11 chain's first, tile +
+    110 rows, the largest) its m64 tiles plus one per pass for its weight
+    stream.
     """
     if c not in CHANNELS:
         raise ValueError(f"no kernel for C={c}; C must be one of {CHANNELS}")
     if dtype not in MAX_TILE:
         raise TypeError(f"no kernel for {dtype}")
     halo = stage_halo(kernel_sizes, dilation_sizes)
-    step = TILE_STEP[dtype]
-    top = min(MAX_TILE[dtype], _cdiv(t, step) * step)
-    if dtype == torch.bfloat16:
-        for tile in range(top, 0, -step):
-            if stage_smem(c, halo, tile, dtype) <= SMEM_LIMIT:
-                return tile
-    else:
-        best = best_cost = None
-        for tile in range(step, top + 1, step):
-            if not stage_plan_f32(c, halo, tile)[2]:
-                break
-            waves = _cdiv(batch * _cdiv(t, tile), n_sm)
-            work = sum(_cdiv(n, WGMMA_ROWS) + _cdiv(n, pass_rows(c, dtype))
-                       for n in stage_convs(tile, kernel_sizes, dilation_sizes))
-            if best_cost is None or waves * work <= best_cost:
-                best, best_cost = tile, waves * work
-        if best is not None:
-            return best
-    raise ValueError(f"no time tile fits shared memory at C={c}, halo {halo}")
+    top = min(MAX_TILE[dtype], _cdiv(t, TILE_STEP) * TILE_STEP)
+    best = best_cost = None
+    for tile in range(TILE_STEP, top + 1, TILE_STEP):
+        if not stage_plan(c, halo, tile, dtype)[2]:
+            break
+        waves = _cdiv(batch * _cdiv(t, tile), n_sm)
+        work = sum(_cdiv(n, WGMMA_ROWS) + _cdiv(n, pass_rows(c, dtype))
+                   for n in stage_convs(tile, kernel_sizes, dilation_sizes))
+        if best_cost is None or waves * work <= best_cost:
+            best, best_cost = tile, waves * work
+    if best is None:
+        raise ValueError(f"no time tile fits shared memory at C={c}, halo {halo}")
+    return best
 
 
 def pack_stage_f32(weights: StageWeights):
@@ -202,6 +179,8 @@ def fused_mrf_stage(x, weights: StageWeights, kernel_sizes: Sequence[int],
     check_operands("fused_mrf_stage", x, tensors, shapes)
     tile = stage_tile(c, tuple(kernel_sizes), tuple(map(tuple, dilation_sizes)), t, x.dtype, bsz,
                       sm_count(x.device))
+    box, n_box, stages, _ = stage_plan(c, stage_halo(kernel_sizes, dilation_sizes), tile, x.dtype)
+    kmt, kc = wg_cfg(c, x.dtype)[:2]
     lib = build.load()
     i32 = ctypes.c_int
     with torch.cuda.device(x.device):  # as in fused_residual_unit
@@ -209,9 +188,6 @@ def fused_mrf_stage(x, weights: StageWeights, kernel_sizes: Sequence[int],
         stream = ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream)
         ks = (i32 * n_chains)(*[int(k) for k in kernel_sizes])
         if x.dtype == torch.float32:
-            box, n_box, stages, _ = stage_plan_f32(
-                c, stage_halo(kernel_sizes, dilation_sizes), tile)
-            kmt, kc, _ = WG_CFG[c]
             w, taps1, taps2 = pack_stage_f32(weights)
             biases = [u[i].data_ptr() for units in weights for u in units for i in (1, 3)]
             err = lib.evt_mrf_stage_f32(
@@ -224,7 +200,7 @@ def fused_mrf_stage(x, weights: StageWeights, kernel_sizes: Sequence[int],
             err = lib.evt_mrf_stage_bf16(
                 x.data_ptr(), y.data_ptr(), (ctypes.c_void_p * len(ptrs))(*ptrs), ks,
                 (i32 * n_chains)(*n_units), (i32 * len(dils))(*dils),
-                n_chains, bsz, t, c, tile, ring_rows(c), stream)
+                n_chains, bsz, t, c, tile, box, n_box, stages, kmt, kc, stream)
         build.check(err, "fused_mrf_stage")
     build.count_launch(fused_mrf_stage)
     return y

@@ -6,11 +6,14 @@ Replaces the TPU kernel `emotivoice_tpu/ops/pallas/resblock.py`
 its header comment states what bounds it on the H100 (operations: hundreds
 of FLOP per byte moved) and what its design does about that (the
 intermediate stays in shared memory, x is read once and y written once; both
-convs run on the tensor cores: bf16 through `csrc/mma_conv.cuh` (`mma.sync`),
-f32 as a 3xTF32 split through `csrc/wgmma_conv_f32.cuh` (`wgmma`, weights by
-TMA through a producer's ring). For f32 the wrapper hands the kernel both
-convs' weights K-major in one buffer, (2K, C_out, C_in): `wgmma` reads tf32
-B only K-major.
+convs run on the tensor cores with `wgmma`, weights by TMA through a
+producer's `mbarrier` ring: bf16 through `csrc/wgmma_conv_bf16.cuh`, which
+reads the HIO weights MN-major as they are, f32 as a 3xTF32 split through
+`csrc/wgmma_conv_f32.cuh`). For f32 the wrapper hands the kernel both convs'
+weights K-major in one buffer, (2K, C_out, C_in): `wgmma` reads tf32 B only
+K-major. The wrapper plans the time tile in whole 64-row `wgmma` tiles
+against the card's waves (`unit_tile`) and the TMA boxes and ring stages
+beside it (`unit_plan`).
 
 `fused_residual_unit` launches the kernel for a CUDA tensor and takes the
 plain version for a CPU tensor; any other device, dtype or shape raises, and
@@ -30,34 +33,28 @@ from emotivoice_tpu_torch.ops.cuda import build
 LRELU_SLOPE = 0.1
 SMEM_LIMIT = 232_448  # bytes of shared memory one block may use on sm_90
 CHANNELS = (32, 64, 128, 256)  # C the kernels are instantiated for
-# bf16: the mma.sync core, csrc/mma_conv.cuh
-WARPS = 8  # kWarps
-MMA_ROWS = 16  # rows of one mma.sync m16 tile
-# MmaCfg<C, bf16> as (kWN, kNT, kMT, kKC, kStages): warps across C_out, n8 tiles and
-# m16 tiles per warp, weight rows (tap x C_in) per ring stage, ring depth
-MMA_CFG = {
-    torch.bfloat16: {
-        32: (1, 4, 8, 128, 2),
-        64: (1, 8, 4, 128, 2),
-        128: (2, 8, 4, 128, 2),
-        256: (4, 8, 4, 64, 2),
-    },
-}
-# Fewest rows of a bf16 tile: each weight byte a block streams from L2 serves
-# that many rows, and below them L2 becomes the limit.
-MMA_MIN_ROWS = {torch.bfloat16: {32: 64, 64: 64, 128: 128, 256: 64}}
-# f32: the wgmma core, csrc/wgmma_conv_f32.cuh. WgCfg<C> as (kMT, kKC, kStages):
-# m64 tiles per consumer warpgroup and pass, input channels per ring stage,
-# deepest ring a launch takes
+# The wgmma cores' tilings, as (kMT, kKC, kStages, ...): m64 tiles per consumer
+# warpgroup and pass, input channels per ring stage, deepest ring a launch takes.
+# f32: WgCfg<C> of csrc/wgmma_conv_f32.cuh
 WG_CFG = {
     32: (2, 32, 6),
     64: (2, 32, 4),
     128: (1, 32, 4),
     256: (1, 8, 4),
 }
+# bf16: WgCfgBf16<C> of csrc/wgmma_conv_bf16.cuh, also kWait (wgmma groups left
+# in flight at each ring stage)
+WG_CFG_BF16 = {
+    32: (6, 32, 8, 0),
+    64: (2, 64, 6, 1),
+    128: (1, 64, 4, 1),
+    256: (1, 32, 4, 1),
+}
 WG_CONSUMERS = 2  # kConsumerWGs
 WGMMA_ROWS = 64  # rows of one wgmma m64 tile
 BOX_ROWS = 256  # most rows of one TMA box
+# most passes of the core over conv1's rows in a unit tile (as timed: PERF.md)
+UNIT_PASSES = {torch.float32: 1, torch.bfloat16: 3}
 H100_SMS = 132  # streaming multiprocessors of an H100 SXM
 
 
@@ -140,23 +137,14 @@ def kmajor(weights) -> torch.Tensor:
     return torch.cat(list(weights)).transpose(1, 2).contiguous()
 
 
-def ring_rows(c: int) -> int:
-    """bf16 weight rows per ring stage passed to the kernel (`kc`)."""
-    return MMA_CFG[torch.bfloat16][c][3]
-
-
-def weight_smem(c: int) -> int:
-    """Bytes of shared memory the bf16 cp.async weight ring takes."""
-    _, _, _, kc, stages = MMA_CFG[torch.bfloat16][c]
-    return stages * kc * c * 2
+def wg_cfg(c: int, dtype: torch.dtype):
+    """The tiling of the core that runs `dtype` at C = c."""
+    return WG_CFG[c] if dtype == torch.float32 else WG_CFG_BF16[c]
 
 
 def pass_rows(c: int, dtype: torch.dtype) -> int:
     """Output rows one pass of the kernel's conv loop covers."""
-    if dtype == torch.float32:
-        return WG_CONSUMERS * WG_CFG[c][0] * WGMMA_ROWS
-    wn, _, mt, _, _ = MMA_CFG[dtype][c]
-    return WARPS // wn * mt * MMA_ROWS
+    return WG_CONSUMERS * wg_cfg(c, dtype)[0] * WGMMA_ROWS
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -165,58 +153,57 @@ def _cdiv(a: int, b: int) -> int:
 
 def act_boxes(rows: int):
     """(box_rows, n_box): TMA boxes of at most BOX_ROWS rows, a multiple of 8,
-    that cover an f32 activation tile of `rows` rows."""
+    that cover an activation tile of `rows` rows."""
     n_box = _cdiv(rows, BOX_ROWS)
     return _cdiv(_cdiv(rows, n_box), 8) * 8, n_box
 
 
-def f32_stage_bytes(c: int) -> int:
-    """Shared memory of one f32 ring stage: head and tail tiles, 3 mbarriers."""
-    return 2 * c * WG_CFG[c][1] * 4 + 24
+def stage_bytes(c: int, dtype: torch.dtype) -> int:
+    """Shared memory of one ring stage: f32 head and tail tiles and 3
+    mbarriers (full, ready, empty); bf16 one tile and 2 (full, empty)."""
+    kc = wg_cfg(c, dtype)[1]
+    if dtype == torch.float32:
+        return 2 * c * kc * 4 + 24
+    return c * kc * 2 + 16
 
 
-def f32_ring_stages(c: int, other: int) -> int:
+def ring_stages(c: int, other: int, dtype: torch.dtype) -> int:
     """Most ring stages (at most kStages) beside `other` bytes of shared
     memory; 0 where fewer than two fit."""
-    n = min(WG_CFG[c][2], (SMEM_LIMIT - other) // f32_stage_bytes(c))
+    n = min(wg_cfg(c, dtype)[2], (SMEM_LIMIT - other) // stage_bytes(c, dtype))
     return n if n >= 2 else 0
 
 
-def unit_plan_f32(c: int, k: int, d: int, tile: int):
-    """(box_rows, n_box, stages, smem bytes) of the f32 kernel at `tile`: the x
-    tile (reused for the intermediate), 1 KB of alignment slack, x's
-    mbarrier and the ring."""
-    h1, h2 = (k - 1) // 2 * d, (k - 1) // 2
-    box, n_box = act_boxes(tile + 2 * (h1 + h2))
-    other = 1024 + c * 4 * box * n_box + 8
-    stages = f32_ring_stages(c, other)
-    return box, n_box, stages, other + stages * f32_stage_bytes(c)
+def tile_plan(c: int, rows: int, n_tiles: int, dtype: torch.dtype):
+    """(box_rows, n_box, stages, smem bytes) of a kernel that holds `n_tiles`
+    activation tiles of `rows` rows (in whole boxes), 1 KB of alignment
+    slack, x's mbarrier and the ring."""
+    box, n_box = act_boxes(rows)
+    other = 1024 + n_tiles * c * dtype.itemsize * box * n_box + 8
+    stages = ring_stages(c, other, dtype)
+    return box, n_box, stages, other + stages * stage_bytes(c, dtype)
 
 
-def unit_smem(c: int, k: int, d: int, tile: int, dtype: torch.dtype) -> int:
-    """Shared memory of one block. bf16: haloed x tile, intermediate,
-    weights; f32: `unit_plan_f32`."""
-    if dtype == torch.float32:
-        return unit_plan_f32(c, k, d, tile)[3]
+def unit_plan(c: int, k: int, d: int, tile: int, dtype: torch.dtype):
+    """`tile_plan` of the kernel at `tile`: one x tile of tile + 2 * (h1 + h2)
+    rows, reused for the intermediate."""
     h1, h2 = (k - 1) // 2 * d, (k - 1) // 2
-    rows = (tile + 2 * (h1 + h2)) + (tile + 2 * h2)
-    return dtype.itemsize * c * rows + weight_smem(c)
+    return tile_plan(c, tile + 2 * (h1 + h2), 1, dtype)
 
 
 def _unit_cands(c: int, k: int, dtype: torch.dtype):
-    """Tiles the planner weighs: conv1 at most one pass of the core and the
-    tile or conv1's rows whole mma tiles (m16 for bf16, m64 for f32); bf16
-    tiles at least MMA_MIN_ROWS rows (fewer only where the pass is shorter).
-    (f32 conv1 in two passes, at 128 rows for 3 waves instead of 4 at C=256,
-    was slower in every case timed: PERF.md.)"""
+    """Tiles the planner weighs: the tile or conv1's rows (tile + 2 * h2)
+    whole m64 tiles, conv1 in at most UNIT_PASSES[dtype] passes of the core.
+    f32 keeps conv1 in one pass (two, at 128 rows for 3 waves instead of 4 at
+    C=256, were slower in every case timed); bf16 rows are half as wide, and
+    its tiles take up to three (the nine C=128 launches of a generator call
+    took 4.31 ms at 374-row tiles against 4.57 at 246 rows and 4.77 at 510 on
+    an H100, which the waves * work count ranks alike: PERF.md)."""
     h2 = (k - 1) // 2
-    rows = pass_rows(c, dtype)
-    step = WGMMA_ROWS if dtype == torch.float32 else MMA_ROWS
-    hi = rows - 2 * h2
-    lo = 1 if dtype == torch.float32 else min(MMA_MIN_ROWS[dtype][c], hi)
-    cands = {m * step for m in range(1, rows // step + 1)}
-    cands |= {m * step - 2 * h2 for m in range(1, rows // step + 1)}
-    return sorted(x for x in cands if lo <= x <= hi), step
+    hi = UNIT_PASSES[dtype] * pass_rows(c, dtype) - 2 * h2
+    cands = {m * WGMMA_ROWS for m in range(1, hi // WGMMA_ROWS + 2)}
+    cands |= {m * WGMMA_ROWS - 2 * h2 for m in range(1, hi // WGMMA_ROWS + 2)}
+    return sorted(x for x in cands if 1 <= x <= hi)
 
 
 @functools.lru_cache(maxsize=None)
@@ -224,27 +211,22 @@ def unit_tile(c: int, k: int, d: int, t: int, dtype: torch.dtype = torch.float32
               batch: int = 1, n_sm: int = H100_SMS) -> int:
     """Time tile of the kernel, within the shared-memory limit.
 
-    Of the candidates (`_unit_cands`) that fit (f32: beside a ring of at
-    least two stages), the tile with the least waves * work: waves =
-    ceil(blocks / n_sm), work = per conv, the mma tiles a warp (bf16) or the
-    m64 tiles the block (f32) runs, plus one per pass for its weight stream.
+    Of the candidates (`_unit_cands`) that fit beside a ring of at least
+    two stages, the tile with the least waves * work: waves =
+    ceil(blocks / n_sm), work = per conv, the m64 tiles the block runs, plus
+    one per pass for its weight stream.
     """
     if c not in CHANNELS:
         raise ValueError(f"no kernel for C={c}; C must be one of {CHANNELS}")
     if dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"no kernel for {dtype}")
     h2 = (k - 1) // 2
-    cands, step = _unit_cands(c, k, dtype)
-    per = 1 if dtype == torch.float32 else WARPS // MMA_CFG[dtype][c][0]
     best = best_cost = None
-    for tile in cands:
-        if dtype == torch.float32:
-            if not unit_plan_f32(c, k, d, tile)[2]:
-                break
-        elif unit_smem(c, k, d, tile, dtype) > SMEM_LIMIT:
+    for tile in _unit_cands(c, k, dtype):
+        if not unit_plan(c, k, d, tile, dtype)[2]:
             break
         waves = _cdiv(batch * _cdiv(t, tile), n_sm)
-        work = sum(_cdiv(_cdiv(n, step), per) + _cdiv(n, pass_rows(c, dtype))
+        work = sum(_cdiv(n, WGMMA_ROWS) + _cdiv(n, pass_rows(c, dtype))
                    for n in (tile + 2 * h2, tile))
         if best_cost is None or waves * work <= best_cost:
             best, best_cost = tile, waves * work
@@ -301,6 +283,8 @@ def fused_residual_unit(x, w1, b1, w2, b2, k: int, d: int) -> torch.Tensor:
     check_operands("fused_residual_unit", x, (w1, b1, w2, b2),
                    ((k, c, c), (c,), (k, c, c), (c,)))
     tile = unit_tile(c, k, d, t, x.dtype, bsz, sm_count(x.device))
+    box, n_box, stages, _ = unit_plan(c, k, d, tile, x.dtype)
+    kmt, kc = wg_cfg(c, x.dtype)[:2]
     lib = build.load()
     # the entry point sets the kernel's attributes and launches on the
     # current device: make it x's (an engine replica may not be on it)
@@ -308,8 +292,6 @@ def fused_residual_unit(x, w1, b1, w2, b2, k: int, d: int) -> torch.Tensor:
         y = torch.empty_like(x)
         stream = ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream)
         if x.dtype == torch.float32:
-            box, n_box, stages, _ = unit_plan_f32(c, k, d, tile)
-            kmt, kc, _ = WG_CFG[c]
             w = kmajor((w1, w2))
             err = lib.evt_residual_unit_f32(
                 x.data_ptr(), w.data_ptr(), b1.data_ptr(), b2.data_ptr(), y.data_ptr(),
@@ -317,7 +299,7 @@ def fused_residual_unit(x, w1, b1, w2, b2, k: int, d: int) -> torch.Tensor:
         else:
             err = lib.evt_residual_unit_bf16(
                 x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-                y.data_ptr(), bsz, t, c, k, d, tile, ring_rows(c), stream)
+                y.data_ptr(), bsz, t, c, k, d, tile, box, n_box, stages, kmt, kc, stream)
         build.check(err, "fused_residual_unit")
     build.count_launch(fused_residual_unit)
     return y

@@ -306,36 +306,39 @@ def test_unit_tile_fits_shared_memory_at_main_path_shapes(c, dtype):
         for d in (1, 3, 5):
             h1, h2 = (k - 1) // 2 * d, (k - 1) // 2
             tile = trb.unit_tile(c, k, d, t, dtype, batch=16, n_sm=132)
-            if dtype == torch.bfloat16:
-                _, _, _, kc, stages = trb.MMA_CFG[dtype][c]
-                ring = stages * kc * c  # values in the weight ring
-                smem = 2 * (c * ((tile + 2 * (h1 + h2)) + (tile + 2 * h2)) + ring)
-                # either conv2 or conv1 covers whole m16 tiles
-                assert tile % trb.MMA_ROWS == 0 or (tile + 2 * h2) % trb.MMA_ROWS == 0
-                assert tile >= {256: 64, 128: 128}[c]  # rows per weight byte from L2
-            else:
-                box, n_box, stages, smem = trb.unit_plan_f32(c, k, d, tile)
-                _, kc, most = trb.WG_CFG[c]
-                # x tile (slabs of box rows, reused for the intermediate), ring, slack, barriers
-                assert smem == 1024 + 4 * c * box * n_box + stages * (2 * c * kc * 4 + 24) + 8
-                assert box * n_box >= tile + 2 * (h1 + h2) and box % 8 == 0 and box <= 256
-                assert 2 <= stages <= most
-                # conv1 covers whole m64 wgmma tiles, both consumer warpgroups' worth
-                assert (tile + 2 * h2) % (trb.WGMMA_ROWS * trb.WG_CONSUMERS) == 0
-            assert smem == trb.unit_smem(c, k, d, tile, dtype) <= trb.SMEM_LIMIT
-            assert tile + 2 * h2 <= trb.pass_rows(c, dtype)  # conv1 is one pass
+            box, n_box, stages, smem = trb.unit_plan(c, k, d, tile, dtype)
+            kc, most = trb.wg_cfg(c, dtype)[1:3]
+            # x tile (slabs of box rows, reused for the intermediate), slack, barriers, ring:
+            # f32 stages hold a head and a tail tile and 3 mbarriers, bf16 one tile and 2
+            stage = 2 * c * kc * 4 + 24 if dtype == torch.float32 else c * kc * 2 + 16
+            assert smem == 1024 + dtype.itemsize * c * box * n_box + 8 + stages * stage
+            assert box * n_box >= tile + 2 * (h1 + h2) and box % 8 == 0 and box <= 256
+            assert 2 <= stages <= most and smem <= trb.SMEM_LIMIT
+            # the tile or conv1 covers whole m64 wgmma tiles
+            assert tile % trb.WGMMA_ROWS == 0 or (tile + 2 * h2) % trb.WGMMA_ROWS == 0
+            passes = -(-(tile + 2 * h2) // trb.pass_rows(c, dtype))
+            # conv1 in one pass (f32) or up to three (bf16)
+            assert passes <= {torch.float32: 1, torch.bfloat16: 3}[dtype]
             assert tile >= h1 + h2  # the tile covers one side's halo
 
 
 def test_unit_tile_bf16_fills_whole_waves():
-    """At C=256 of the bench bucket (16 x 3072 rows) 96-row tiles make 512
-    blocks, 3.9 waves of 132 SMs, where the largest one-pass tile (118 rows
-    at k=11 d=5) makes 432, 3.3 waves, of more m16 tiles each. With one batch
-    row every tile fits one wave, so the least work per block wins; with
-    enough SMs for every 118-row block, the largest tile does."""
-    assert trb.unit_tile(256, 11, 5, 3072, torch.bfloat16, batch=16, n_sm=132) == 96
-    assert trb.unit_tile(256, 11, 5, 3072, torch.bfloat16, batch=1, n_sm=132) == 64
-    assert trb.unit_tile(256, 11, 5, 3072, torch.bfloat16, batch=16, n_sm=432) == 118
+    """bf16 rows are 512 bytes at C=256, so a tile holds conv1 over several
+    128-row passes. At the bench bucket (16 x 3072 rows) 192-row tiles make
+    256 blocks, 1.94 waves of 132 SMs, where one-pass tiles (118 rows at k=11
+    d=5) make 432 blocks, 4 waves of less work each; with one batch row every
+    tile fits one wave, so the least work per block wins; with enough SMs for
+    every 118-row block, that tile does. At C=128 conv1 takes three passes
+    (374 rows at k=11: 1056 blocks, 8 waves)."""
+    bf = torch.bfloat16
+    assert trb.unit_tile(256, 11, 5, 3072, bf, batch=16, n_sm=132) == 192
+    assert trb.unit_tile(256, 11, 5, 3072, bf, batch=1, n_sm=132) == 54
+    assert trb.unit_tile(256, 11, 5, 3072, bf, batch=16, n_sm=432) == 118
+    assert trb.unit_tile(128, 11, 5, 24576, bf, batch=16, n_sm=132) == 374
+    assert trb.unit_plan(256, 11, 5, 192, bf) == (256, 1, 4, 197_704)
+    assert trb.unit_plan(128, 11, 5, 374, bf) == (224, 2, 4, 181_320)
+    # a tile whose x rows leave no room for two 16 KB stages is not taken
+    assert trb.unit_plan(256, 11, 5, 374, bf)[2] == 0
 
 
 def test_unit_tile_f32_is_bounded_by_shared_memory():
@@ -346,14 +349,15 @@ def test_unit_tile_f32_is_bounded_by_shared_memory():
     Every weight byte a block streams then serves 118-126 rows at C=256,
     against 54-94 in the mma.sync core; at C=128 a 32-channel stage (32 KB)
     serves 118-126 rows in one pass of one m64 tile per warpgroup."""
-    assert trb.f32_stage_bytes(256) == 16_408
-    assert trb.unit_plan_f32(256, 11, 5, 118) == (184, 1, 2, 222_264)
-    assert trb.unit_plan_f32(256, 3, 1, 126) == (136, 1, 4, 205_928)
-    assert trb.unit_tile(256, 11, 5, 3072, torch.float32, batch=16, n_sm=132) == 118
-    assert trb.unit_tile(256, 3, 1, 3072, torch.float32, batch=16, n_sm=132) == 126
-    assert trb.unit_tile(128, 11, 5, 24576, torch.float32, batch=16, n_sm=132) == 118
+    f32 = torch.float32
+    assert trb.stage_bytes(256, f32) == 16_408
+    assert trb.unit_plan(256, 11, 5, 118, f32) == (184, 1, 2, 222_264)
+    assert trb.unit_plan(256, 3, 1, 126, f32) == (136, 1, 4, 205_928)
+    assert trb.unit_tile(256, 11, 5, 3072, f32, batch=16, n_sm=132) == 118
+    assert trb.unit_tile(256, 3, 1, 3072, f32, batch=16, n_sm=132) == 126
+    assert trb.unit_tile(128, 11, 5, 24576, f32, batch=16, n_sm=132) == 118
     # a tile whose x rows leave no room for two stages is not taken
-    assert trb.unit_plan_f32(256, 11, 5, 182)[2] == 0
+    assert trb.unit_plan(256, 11, 5, 182, f32)[2] == 0
 
 
 @pytest.mark.parametrize("dtype", [torch.float16, torch.float64])
@@ -366,7 +370,7 @@ def test_tile_planners_refuse_other_dtypes(dtype):
 
 @pytest.mark.parametrize("c,dtype,want_tile", [
     (64, torch.float32, 240), (32, torch.float32, 704),
-    (64, torch.bfloat16, 320), (32, torch.bfloat16, 768),
+    (64, torch.bfloat16, 680), (32, torch.bfloat16, 1336),
 ])
 def test_stage_tile_at_main_path_shapes(c, dtype, want_tile):
     halo = tms.stage_halo(V1_KS, V1_DS)
@@ -374,22 +378,31 @@ def test_stage_tile_at_main_path_shapes(c, dtype, want_tile):
     t = {64: 128 * 384, 32: 256 * 384}[c]  # stages 3-4 of the bench bucket
     tile = tms.stage_tile(c, V1_KS, V1_DS, t, dtype, batch=16, n_sm=132)
     assert tile == want_tile
-    if dtype == torch.bfloat16:
-        _, _, _, kc, stages = trb.MMA_CFG[dtype][c]
-        smem = 2 * (c * 2 * (tile + 2 * halo) + stages * kc * c) + 4 * c * tile
-        assert tile % 64 == 0 and tile >= 2 * halo
-        # every conv of the tile (at most tile + 2 * halo rows) is one pass of the core
-        assert tile + 2 * halo <= trb.pass_rows(c, dtype)
-        assert tms.stage_tile(c, V1_KS, V1_DS, 50, dtype) == 64  # short inputs get one step
-    else:
-        box, n_box, stages, smem = tms.stage_plan_f32(c, halo, tile)
-        _, kc, most = trb.WG_CFG[c]
-        # chain activation and intermediate (slabs of box rows each), ring, slack; the
-        # chain sum stays in y
-        assert smem == 1024 + 4 * c * 2 * box * n_box + stages * (2 * c * kc * 4 + 24) + 8
-        assert box * n_box >= tile + 2 * halo and 2 <= stages <= most and tile % 8 == 0
-        assert tms.stage_tile(c, V1_KS, V1_DS, 50, dtype) == 16  # short inputs: small tiles
-    assert smem == tms.stage_smem(c, halo, tile, dtype) <= trb.SMEM_LIMIT
+    box, n_box, stages, smem = tms.stage_plan(c, halo, tile, dtype)
+    kc, most = trb.wg_cfg(c, dtype)[1:3]
+    stage = 2 * c * kc * 4 + 24 if dtype == torch.float32 else c * kc * 2 + 16
+    # chain activation and intermediate (slabs of box rows each), ring, slack; the
+    # chain sum stays in y, in both dtypes
+    assert smem == 1024 + dtype.itemsize * c * 2 * box * n_box + stages * stage + 8
+    assert box * n_box >= tile + 2 * halo and 2 <= stages <= most and tile % 8 == 0
+    assert smem <= trb.SMEM_LIMIT
+    assert tms.stage_tile(c, V1_KS, V1_DS, 50, dtype) == 16  # short inputs: small tiles
+
+
+def _assert_stage_tile_plans_whole_wgmma_tiles(c, t, dtype, least):
+    tile = tms.stage_tile(c, V1_KS, V1_DS, t, dtype, batch=16, n_sm=132)
+    rows = tms.stage_convs(tile, V1_KS, V1_DS)
+    assert len(rows) == 18 and rows[-1] == tile and max(rows) == tile + 110
+    m64 = sum(-(-n // trb.WGMMA_ROWS) for n in rows)
+    assert 18 * tile / (trb.WGMMA_ROWS * m64) >= least
+    passes = sum(-(-n // trb.pass_rows(c, dtype)) for n in rows)
+    waves = -(-16 * -(-t // tile) // 132)
+    for other in range(8, tms.MAX_TILE[dtype] + 1, 8):  # none does less work for its waves
+        if not tms.stage_plan(c, 60, other, dtype)[2]:
+            break
+        o_rows = tms.stage_convs(other, V1_KS, V1_DS)
+        o_work = sum(-(-n // trb.WGMMA_ROWS) + -(-n // trb.pass_rows(c, dtype)) for n in o_rows)
+        assert waves * (m64 + passes) <= -(-16 * -(-t // other) // 132) * o_work
 
 
 @pytest.mark.parametrize("c,t,least", [(64, 128 * 384, 0.80), (32, 256 * 384, 0.91)])
@@ -399,55 +412,68 @@ def test_stage_tile_f32_plans_whole_wgmma_tiles(c, t, least):
     among them), against the waves it makes: at the bench bucket its convs
     run at least 80% (C=64) / 91% (C=32) useful rows in whole m64 tiles.
     Each of them beat the neighbouring tiles on the card (PERF.md)."""
-    tile = tms.stage_tile(c, V1_KS, V1_DS, t, torch.float32, batch=16, n_sm=132)
-    rows = tms.stage_convs(tile, V1_KS, V1_DS)
-    assert len(rows) == 18 and rows[-1] == tile and max(rows) == tile + 110
-    m64 = sum(-(-n // trb.WGMMA_ROWS) for n in rows)
-    assert 18 * tile / (trb.WGMMA_ROWS * m64) >= least
-    passes = sum(-(-n // trb.pass_rows(c, torch.float32)) for n in rows)
-    waves = -(-16 * -(-t // tile) // 132)
-    for other in range(8, tms.MAX_TILE[torch.float32] + 1, 8):  # none does less work for its waves
-        if not tms.stage_plan_f32(c, 60, other)[2]:
-            break
-        o_rows = tms.stage_convs(other, V1_KS, V1_DS)
-        o_work = sum(-(-n // trb.WGMMA_ROWS) + -(-n // trb.pass_rows(c, torch.float32))
-                     for n in o_rows)
-        assert waves * (m64 + passes) <= -(-16 * -(-t // other) // 132) * o_work
+    _assert_stage_tile_plans_whole_wgmma_tiles(c, t, torch.float32, least)
+
+
+@pytest.mark.parametrize("c,t,least", [(64, 128 * 384, 0.91), (32, 256 * 384, 0.95)])
+def test_stage_tile_bf16_plans_whole_wgmma_tiles(c, t, least):
+    """The same planner for bf16, whose rows are half as wide and whose
+    chain sum left shared memory too: tiles of 680 (C=64) and 1336 (C=32)
+    rows, at least 91% / 95% useful rows in whole m64 tiles, 9 waves each.
+    The C=64 tile beat 440 and 568 rows on the card (PERF.md)."""
+    _assert_stage_tile_plans_whole_wgmma_tiles(c, t, torch.bfloat16, least)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_stage_tile_refuses_what_does_not_fit(dtype):
+    """A chain of four k=11 d=5 units has a 120-row halo: at C=256 its two
+    tiles alone exceed shared memory in either dtype. The V1 stage at C=256
+    does not fit in f32; in bf16 (512-byte rows, the chain sum in y) it does."""
     with pytest.raises(ValueError, match="shared memory"):
-        tms.stage_tile(256, V1_KS, V1_DS, 4096, dtype)
+        tms.stage_tile(256, (11,), ((5, 5, 5, 5),), 4096, dtype)
+    if dtype == torch.float32:
+        with pytest.raises(ValueError, match="shared memory"):
+            tms.stage_tile(256, V1_KS, V1_DS, 4096, dtype)
+    else:
+        tile = tms.stage_tile(256, V1_KS, V1_DS, 4096, dtype)
+        assert tms.stage_plan(256, 60, tile, dtype)[2] >= 2
 
 
 def test_core_config_matches_the_cuda_header():
-    """The wrappers' MMA_CFG and WARPS mirror MmaCfg<C, bf16> (mma_conv.cuh)
-    and kThreads (conv_tile.cuh), from which the bf16 kernels size shared
-    memory; f32 has no MmaCfg any more (its core is WgCfg<C>)."""
-    with open(os.path.join(build.CSRC_DIR, "mma_conv.cuh")) as f:
+    """The wrappers' WG_CFG_BF16 mirrors WgCfgBf16<C> of the bf16 core
+    (wgmma_conv_bf16.cuh), from which the bf16 kernels size shared memory and
+    plan passes; each keeps its accumulators within the registers (kMT * C /
+    2 <= 128), its stage whole k16 steps of one tap and its boxes aligned to
+    the swizzle atoms. WG_CONSUMERS mirrors the block shape both cores share
+    (conv_tile.cuh), and the mma.sync core is gone."""
+    with open(os.path.join(build.CSRC_DIR, "wgmma_conv_bf16.cuh")) as f:
         header = f.read()
     cfg = {
         int(c): tuple(int(v) for v in vals)
         for c, *vals in re.findall(
-            r"struct MmaCfg<(\d+), bf16> \{ static constexpr int kWN = (\d+), kNT = (\d+), "
-            r"kMT = (\d+), kKC = (\d+), kStages = (\d+); \};", header)
+            r"struct WgCfgBf16<(\d+)> \{ static constexpr int kMT = (\d+), kKC = (\d+), "
+            r"kStages = (\d+), kWait = (\d+); \};", header)
     }
-    assert cfg == trb.MMA_CFG[torch.bfloat16] and set(trb.MMA_CFG) == {torch.bfloat16}
-    for c, (wn, nt, _, kc, stages) in cfg.items():
-        assert wn * nt * 8 == c and kc % 16 == 0 and stages >= 2
-    assert "MmaCfg<" not in open(os.path.join(build.CSRC_DIR, "wgmma_conv_f32.cuh")).read()
+    assert cfg == trb.WG_CFG_BF16 and sorted(cfg) == list(trb.CHANNELS)
+    for c, (mt, kc, stages, wait) in cfg.items():
+        assert mt * c // 2 <= 128 and kc % 16 == 0 and c % kc == 0 and stages >= 2
+        assert wait in (0, 1) and kc * min(c, 64) * 2 % 1024 == 0
+        assert trb.pass_rows(c, torch.bfloat16) == trb.WG_CONSUMERS * mt * trb.WGMMA_ROWS
     with open(os.path.join(build.CSRC_DIR, "conv_tile.cuh")) as f:
-        shared = f.read()
-    threads = int(re.search(r"constexpr int kThreads = (\d+);", shared).group(1))
-    assert threads == 32 * trb.WARPS
+        consts = dict(re.findall(r"constexpr int (k\w+) = ([^;]+);", f.read()))
+    assert int(consts["kConsumerWGs"]) == trb.WG_CONSUMERS
+    assert consts["kWgBlock"] == "kConsumers + 128" and consts["kConsumers"] == "128 * kConsumerWGs"
+    for name in os.listdir(build.CSRC_DIR):
+        with open(os.path.join(build.CSRC_DIR, name)) as f:
+            text = f.read()
+        assert "MmaCfg" not in text and "mma.sync.aligned" not in text, name
 
 
 def test_wg_config_matches_the_cuda_header():
-    """WG_CFG and WG_CONSUMERS mirror WgCfg<C> and kConsumerWGs of the f32
-    core (wgmma_conv_f32.cuh), from which the f32 kernels size shared memory;
-    each config keeps its accumulators within the registers (kMT * C / 2 <=
-    128) and its stage a whole swizzle mode."""
+    """WG_CFG mirrors WgCfg<C> of the f32 core (wgmma_conv_f32.cuh), from
+    which the f32 kernels size shared memory; each config keeps its
+    accumulators within the registers (kMT * C / 2 <= 128) and its stage a
+    whole swizzle mode."""
     with open(os.path.join(build.CSRC_DIR, "wgmma_conv_f32.cuh")) as f:
         header = f.read()
     cfg = {
@@ -457,8 +483,6 @@ def test_wg_config_matches_the_cuda_header():
             r"kStages = (\d+); \};", header)
     }
     assert cfg == trb.WG_CFG and sorted(cfg) == list(trb.CHANNELS)
-    consts = dict(re.findall(r"constexpr int (k\w+) = (\d+);", header))
-    assert int(consts["kConsumerWGs"]) == trb.WG_CONSUMERS
     for c, (mt, kc, stages) in cfg.items():
         assert mt * c // 2 <= 128 and kc in (8, 16, 32) and c % kc == 0 and stages >= 2
         assert c * kc * 4 % 1024 == 0  # stages stay aligned to the swizzle atoms
@@ -520,9 +544,10 @@ def test_weight_split_is_truncated_head_and_rounded_tail():
 
 def test_chip_smoke_counts_tensor_core_instructions_per_instantiation():
     sass = "\n".join([
-        "\t\tFunction : _ZN3evt20residual_unit_kernelILi256E13__nv_bfloat16EEvPKT0_S4_S4_S4_S4_PS2_iiii",
-        "        /*0a30*/                   HMMA.16816.F32.BF16 R4, R12, R20, R4 ;",
-        "        /*0a40*/                   HMMA.16816.F32.BF16 R8, R12, R22, R8 ;",
+        "\t\tFunction : _ZN3evt20residual_unit_kernelILi256E13__nv_bfloat16EEv14CUtensorMap_stS2_S2_PKS1_S4_S4_PS1_iiiiiii",
+        "        /*0100*/                   UTMALDG.3D [UR8], [UR4] ;",
+        "        /*0a30*/                   HGMMA.64x256x16.F32.BF16 R24, R16, gdesc[UR4], R24 ;",
+        "        /*0a40*/                   HGMMA.64x256x16.F32.BF16 R24, R20, gdesc[UR8], R24, gsb0 ;",
         "\t\tFunction : _ZN3evt20residual_unit_kernelILi256EfEEv14CUtensorMap_stS1_PKfS3_S3_Pfiiiiiii",
         "        /*0100*/                   UTMALDG.3D [UR8], [UR4] ;",
         "        /*0110*/                   FADD R4, R5, R6 ;",
@@ -531,8 +556,12 @@ def test_chip_smoke_counts_tensor_core_instructions_per_instantiation():
         "\t\tFunction : _ZN3evt16mrf_stage_kernelILi64EfEEv14CUtensorMap_stS1_PfNS_12StageArgsF32Eiiiiii",
         "        /*0100*/                   HMMA.1688.F32.TF32 R4, R8, R12, R4 ;",
         "        /*0110*/                   HGMMA.64x64x8.F32.TF32 R24, R16, gdesc[UR4], R24 ;",
-        "\t\tFunction : _ZN3evt16mrf_stage_kernelILi32E13__nv_bfloat16EEvPKT0_PS2_NS_9StageArgsEiii",
-        "        /*0200*/                   HMMA.16816.F32.BF16 R4, R12, R20, R4 ;",
+        "\t\tFunction : _ZN3evt16mrf_stage_kernelILi64E13__nv_bfloat16EEv14CUtensorMap_stPS1_NS_13StageArgsBf16Eiiiiii",
+        "        /*0200*/                   UTMALDG.2D [UR8], [UR4] ;",
+        "        /*0210*/                   HMMA.16816.F32.BF16 R4, R12, R20, R4 ;",
+        "        /*0220*/                   HGMMA.64x64x16.F32.BF16 R24, R16, gdesc[UR4], R24 ;",
+        "\t\tFunction : _ZN3evt16mrf_stage_kernelILi32E13__nv_bfloat16EEv14CUtensorMap_stPS1_NS_13StageArgsBf16Eiiiiii",
+        "        /*0200*/                   HGMMA.64x32x16.F32.BF16 R24, R16, gdesc[UR4], R24 ;",
         "\t\tFunction : _ZN3evt16mrf_stage_kernelILi32EfEEv14CUtensorMap_stS1_PfNS_12StageArgsF32Eiiiiii",
         "        /*0300*/                   FFMA R4, R5, R6, R4 ;",
         "\t\tFunction : some_other_kernel",
@@ -541,24 +570,29 @@ def test_chip_smoke_counts_tensor_core_instructions_per_instantiation():
     counts = chip_smoke.parse_sass_mma(sass)
     zero = dict.fromkeys(("HMMA", "HGMMA", "UTMALDG"), 0)
     assert counts == {
-        ("residual_unit_kernel", 256, "bf16"): {**zero, "HMMA": 2},
+        ("residual_unit_kernel", 256, "bf16"): {**zero, "HGMMA": 2, "UTMALDG": 1},
         ("residual_unit_kernel", 256, "f32"): {**zero, "HGMMA": 2, "UTMALDG": 1},
         ("mrf_stage_kernel", 64, "f32"): {**zero, "HMMA": 1, "HGMMA": 1},
-        ("mrf_stage_kernel", 32, "bf16"): {**zero, "HMMA": 1},
+        ("mrf_stage_kernel", 64, "bf16"): {**zero, "HMMA": 1, "HGMMA": 1, "UTMALDG": 1},
+        ("mrf_stage_kernel", 32, "bf16"): {**zero, "HGMMA": 1},
         ("mrf_stage_kernel", 32, "f32"): zero,
     }
     faults = chip_smoke.sass_faults(counts)
-    # f32: an HMMA beside the HGMMAs (the old core) and no TMA, or nothing at all
+    # both dtypes: an HMMA beside the HGMMAs (the mma.sync cores), no TMA, or nothing at all
     assert [f.split(":")[0] for f in faults] == [
+        "mrf_stage_kernel<32, bf16>", "mrf_stage_kernel<64, bf16>",
         "mrf_stage_kernel<32, f32>", "mrf_stage_kernel<64, f32>"]
     # a kernel of which a dtype has no instantiation at all
     del counts[("residual_unit_kernel", 256, "bf16")]
     assert "residual_unit_kernel: no bf16 instantiation" in chip_smoke.sass_faults(counts)
-    good = {("residual_unit_kernel", 256, "bf16"): {**zero, "HMMA": 2},
+    good = {("residual_unit_kernel", 256, "bf16"): {**zero, "HGMMA": 2, "UTMALDG": 1},
             ("residual_unit_kernel", 256, "f32"): {**zero, "HGMMA": 2, "UTMALDG": 1},
-            ("mrf_stage_kernel", 32, "bf16"): {**zero, "HMMA": 1},
+            ("mrf_stage_kernel", 32, "bf16"): {**zero, "HGMMA": 1, "UTMALDG": 2},
             ("mrf_stage_kernel", 32, "f32"): {**zero, "HGMMA": 1, "UTMALDG": 1}}
     assert chip_smoke.sass_faults(good) == []
+    # the bf16 mma.sync core's listing, which [build] accepted before, is refused
+    old = {**good, ("mrf_stage_kernel", 32, "bf16"): {**zero, "HMMA": 4}}
+    assert [f.split(":")[0] for f in chip_smoke.sass_faults(old)] == ["mrf_stage_kernel<32, bf16>"]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -572,9 +606,9 @@ def test_kernel_bench_patches_one_config_line(dtype):
         cfg = {256: (1, 16, 3), 64: (2, 16, 4)}
         bad = "48:1,2,3"
     else:
-        text, mirror = "256:4,8,4,8,3;64:2,4,5,32,2", trb.MMA_CFG[dtype]
-        cfg = {256: (4, 8, 4, 8, 3), 64: (2, 4, 5, 32, 2)}
-        bad = "48:1,2,3,4,5"
+        text, mirror = "256:1,64,6,0;64:3,32,5,1", trb.WG_CFG_BF16
+        cfg = {256: (1, 64, 6, 0), 64: (3, 32, 5, 1)}
+        bad = "48:1,2,3,4"
     assert kernel_bench.parse_cfg(text, dtype) == cfg
     patched = kernel_bench.patch_header(header, cfg, dtype)
     changed = [(a, b) for a, b in zip(header.splitlines(), patched.splitlines()) if a != b]
@@ -589,12 +623,30 @@ def test_kernel_bench_patches_one_config_line(dtype):
         kernel_bench.parse_cfg(text, torch.bfloat16 if dtype == torch.float32 else torch.float32)
 
 
+@pytest.mark.parametrize("name", sorted(kernel_bench.SKIPS))
+def test_kernel_bench_skip_patches_one_bf16_source_line(name):
+    """--skip leaves one part of the bf16 kernels out by patching one line
+    of one source: the line must be there exactly once, and nothing else
+    changes."""
+    fname = kernel_bench.SKIPS[name][0]
+    with open(os.path.join(build.CSRC_DIR, fname)) as f:
+        text = f.read()
+    patched = kernel_bench.patch_skip(text, name)
+    changed = [(a, b) for a, b in zip(text.splitlines(), patched.splitlines()) if a != b]
+    assert len(changed) == 1 and len(text.splitlines()) == len(patched.splitlines())
+    with pytest.raises(ValueError, match="not there once"):
+        kernel_bench.patch_skip(patched, name)
+
+
 def test_kernel_bench_reckons_the_l2_weight_stream():
     """Each f32 block streams each conv's K x C x C weights from L2 once per
     pass: at C=256 k=11 d=5 of the bench bucket 432 blocks of 118 rows read
     2 x 5.77 MB each; the stage's 18 convs at C=64 read their taps once per
-    256-row pass."""
+    256-row pass. The bf16 blocks of 192 rows read 2 x 1.44 MB twice (conv1's
+    202 rows and conv2's 192 in two 128-row passes each)."""
     assert kernel_bench.l2_weight_bytes("unit", 256, 3072, 11, 5) == 432 * 2 * 11 * 256 * 256 * 4
+    assert (kernel_bench.l2_weight_bytes("unit", 256, 3072, 11, 5, dtype=torch.bfloat16)
+            == 256 * 4 * 11 * 256 * 256 * 2)
     tile = tms.stage_tile(64, V1_KS, V1_DS, 49152, torch.float32, 16, 132)
     rows = tms.stage_convs(tile, V1_KS, V1_DS)
     taps = [k for k in V1_KS for _ in range(6)]
@@ -649,6 +701,6 @@ def test_build_targets_sm90a_and_lists_every_source():
     names = sorted(p.rsplit("/", 1)[-1] for p in build._sources())
     assert names == ["mrf_stage.cu", "resblock.cu"]
     headers = sorted(p.rsplit("/", 1)[-1] for p in os.listdir(build.CSRC_DIR) if p.endswith(".cuh"))
-    # all hashed into the stamp; the mma.sync f32 core (mma_conv_f32.cuh) is gone
-    assert headers == ["conv_tile.cuh", "hopper.cuh", "mma_conv.cuh", "wgmma_conv_f32.cuh"]
+    # all hashed into the stamp; the mma.sync cores (mma_conv.cuh, mma_conv_f32.cuh) are gone
+    assert headers == ["conv_tile.cuh", "hopper.cuh", "wgmma_conv_bf16.cuh", "wgmma_conv_f32.cuh"]
     assert build.BUILD_DIR.endswith("build/torch_kernels")
