@@ -26,8 +26,23 @@ Phases (any failure exits non-zero and prints no result line):
                 those shapes too, with the model's own weights;
   4. main     - the full-width EmotiVoiceConfig model (random parameters
                 from a seed) behind SynthesisEngine + MicroBatcher answers
-                mixed requests; launch counters must read 18 + 2 per
-                generator call; xRT at the bench shape in f32 and bf16;
+                mixed requests after warming the bench bucket; the engine
+                runs one CUDA graph per bucket (serving/programs.py: a
+                bucket's first call is the eager forward, its second
+                captures (a warm-up run on a side stream, the capture) and
+                replays, the warmup captures at once); launch counters must
+                read 18 + 2 per generator call (each eager forward and each
+                replay), each capture's tally 18 + 2. At the bench bucket, in
+                f32 and bf16: the first call's and the second's seconds,
+                the replay against the eager forward of the same replica
+                on the same inputs (within 1e-5 / 2e-2 of max, lengths
+                equal), eager and replayed `run` in turns, the card's busy
+                share of one call, 18 + 2 launches per replay by the
+                accounting and by a torch.profiler count (both must
+                agree), weights changed in place (seen by the next replay,
+                no rebuild) and a replaced Parameter (rebuilt), alpha 1.0
+                and 1.3 on one program, capture seconds and the graph
+                pool's bytes; xRT of the replayed and the eager call;
   5. cpu      - the same weights at batch 1, 32 tokens on the card and on
                 the CPU (plain versions): equal durations, close waveforms;
   6. style    - the full-width SimBERT style encoder (StyleBertConfig: 12
@@ -41,7 +56,12 @@ Phases (any failure exits non-zero and prints no result line):
                 the background warmup running on a cut grid (batch 1 only,
                 f32); concurrent, long-form, streamed and failing requests
                 through http.client; wavs, metrics, launch counters (18 + 2
-                per generator call), warmup failures and shutdown checked;
+                per generator call), each engine call one generator call
+                (a first call or a replay) besides the captures' warm-up
+                runs, every grid shape captured by
+                the warmup, warmup failures and shutdown checked; bucket
+                programs built, their capture seconds and the graph pool's
+                bytes after the grid;
                 served batches replayed on the CPU with the same weights and
                 the waveforms compared; latency, RTF and the host split per
                 request printed; then the embedding work of one burst is
@@ -198,6 +218,10 @@ PEAK_BYTES = 3.35e12  # HBM3 bytes/s
 TOL_F32 = 2e-4  # max |kernel - plain| / max |plain|, f32 with TF32 off
 TOL_BF16 = 2e-2  # the same in bf16 (roundings at other places)
 TOL_CPU = 2e-3  # whole path, card vs CPU, / max |wav|
+# a bucket program's replay vs the eager forward of its replica on the same
+# inputs, / max |wav|: the same kernels in the same order, expected near 0
+TOL_GRAPH = {"f32": 1e-5, "bf16": TOL_BF16}
+GRAPH_TURNS = 6  # eager and replayed run, in turns: medians of this many each
 # bf16, two replicas (8 rows each) vs one call on 16 rows: cuBLAS and cuDNN
 # may choose other kernels for 8 rows than for 16, and bf16 rounds those sums
 # differently (1.7e-2 of max at the bench bucket on an H100); the replicas are held at
@@ -614,9 +638,176 @@ def _build_model():
     return cfg, vocab, init_random_(JETSGenerator(cfg), SEED)
 
 
-def phase_main(dev, cfg, vocab, model) -> dict:
+def profiled_kernel_counts(fn):
+    """One profiled call of `fn` (`device_kernels`): (the card's busy ms,
+    {wrapper name: launches of its kernel}), or (None, None) if the trace
+    holds no device time."""
+    busy, entries = device_kernels(fn, top=10**6)
+    if busy is None:
+        return None, None
+    return busy, {name: sum(calls for key, _, calls in entries if kernel in key)
+                  for name, kernel in (("fused_residual_unit", "residual_unit_kernel"),
+                                       ("fused_mrf_stage", "mrf_stage_kernel"))}
+
+
+def bench_bucket_program(dev, cfg, vocab, model, dname: str, args) -> dict:
+    """The bench bucket's program in one dtype against the eager forward of
+    the same replica: the first call (the eager forward) and the second
+    (warm-up run, capture, replay), replay vs eager (waveform
+    within TOL_GRAPH x max, equal lengths), eager and replayed `run` in
+    turns, the card's busy share, 18 + 2 launches in the capture's tally,
+    per replay by the accounting and by a profiler count, weights changed in
+    place and a replaced Parameter (rebuild), two alphas on one program, the
+    pool's bytes. The model's weights are restored before it returns."""
     from emotivoice_tpu_torch.ops.cuda.mrf_stage import fused_mrf_stage
     from emotivoice_tpu_torch.ops.cuda.resblock import fused_residual_unit
+    from emotivoice_tpu_torch.serving.engine import SynthesisEngine
+
+    tol = TOL_GRAPH[dname]
+    eng = SynthesisEngine(cfg, model, vocab, device=dev, dtype=dname)
+    cache = eng.programs[0]
+    key = (BENCH_B, BENCH_T_TEXT, BENCH_FRAMES)
+    tensors = [torch.as_tensor(a, device=dev) for a in args]
+    kernels = {"fused_residual_unit": fused_residual_unit, "fused_mrf_stage": fused_mrf_stage}
+    want_launches = dict(zip(kernels, launches_per_call(cfg.vocoder)))
+
+    def call(alpha=1.0):
+        return eng.run(*args, BENCH_FRAMES, alpha)
+
+    def eager(alpha=1.0):
+        with torch.inference_mode():
+            out = model(*tensors, max_frames=BENCH_FRAMES, alpha=alpha, dtype=eng.dtype)
+        return out["wav_predictions"].cpu().numpy(), out["output_lengths"].cpu().numpy()
+
+    def against_eager(what, alpha=1.0, replayed=True):
+        """One engine call against the eager forward; `replayed`: the call
+        replays the graph, else it is a program's first call (eager)."""
+        wav, n = call(alpha)
+        if replayed != (cache.get(key).graph is not None):
+            fail(f"[main] {dname} {what}: {'no' if replayed else 'a'} graph after the call")
+        want, want_n = eager(alpha)
+        scale = float(np.abs(want).max())
+        err = float(np.abs(wav - want).max()) / max(scale, 1e-30)
+        log(f"[main] {dname} {what}: {'replay' if replayed else 'first call'} vs eager "
+            f"{err:.2e} of max (tol {tol:g}), output_lengths "
+            f"{'equal' if np.array_equal(n, want_n) else 'DIFFER'}")
+        if (not np.array_equal(n, want_n) or not np.all(np.isfinite(wav)) or scale < 1e-3
+                or not err <= tol):
+            fail(f"[main] {dname} {what}: the program disagrees with the eager forward")
+        return wav, err
+
+    def tally_of(prog):
+        return {name: prog.launches.get(k, 0) for name, k in kernels.items()}
+
+    t0 = time.perf_counter()
+    against_eager("first call (the eager forward)", replayed=False)
+    first_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    wav0, err = against_eager("second call (warm-up run, capture, replay)")
+    second_s = time.perf_counter() - t0
+    capture_s = cache.get(key).capture_seconds
+    if tally_of(cache.get(key)) != want_launches:
+        fail(f"[main] {dname}: the capture recorded {tally_of(cache.get(key))} launches, not "
+             f"{want_launches}")
+
+    # launches: the accounting, then a profiler's count of one replay
+    for k in kernels.values():
+        k.launches = 0
+    call()
+    counted = {name: k.launches for name, k in kernels.items()}
+    if counted != want_launches:
+        fail(f"[main] {dname}: one replay counted {counted} launches, not {want_launches}")
+    busy_replay, traced = profiled_kernel_counts(call)
+    busy_eager, traced_eager = profiled_kernel_counts(
+        lambda: eng._run_eager(0, args, BENCH_FRAMES, 1.0))
+    if traced != want_launches:
+        fail(f"[main] {dname}: the profiler saw {traced} kernel launches in one replay, not "
+             f"{want_launches}")
+    if traced_eager != want_launches:
+        fail(f"[main] {dname}: the profiler saw {traced_eager} kernel launches in one eager call")
+
+    # eager and replayed run, in turns
+    def wall_ms(fn):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - start) * 1e3
+
+    runs = {"eager": [], "replay": []}
+    calls = {"eager": lambda: eng._run_eager(0, args, BENCH_FRAMES, 1.0), "replay": call}
+    for i in range(GRAPH_TURNS):
+        for name in (("eager", "replay") if i % 2 == 0 else ("replay", "eager")):
+            runs[name].append(wall_ms(calls[name]))
+    eager_ms, replay_ms = (float(np.median(runs[n])) for n in ("eager", "replay"))
+
+    # live weights: in place, then a replaced Parameter
+    nk = len(cfg.vocoder.resblock_kernel_sizes)
+    convs = [model.generator.resblocks[0].convs1[0],  # C=256: fused_residual_unit
+             model.generator.resblocks[2 * nk].convs1[0]]  # C=64: fused_mrf_stage
+    saved = [c.weight_v.detach().clone() for c in convs]
+    builds = cache.builds
+    with torch.no_grad():
+        for c in convs:  # half the input channels: a uniform scale of v would not move g v / |v|
+            c.weight_v[:, : c.weight_v.shape[1] // 2].mul_(2.0)
+    wav_live, err_live = against_eager("weight_v of a unit conv and a stage conv doubled on "
+                                       "half its input channels, in place")
+    moved = float(np.abs(wav_live - wav0).max() / np.abs(wav0).max())
+    with torch.no_grad():
+        for c, v in zip(convs, saved):
+            c.weight_v.copy_(v)
+    wav_back, _ = call()
+    back = float(np.abs(wav_back - wav0).max() / np.abs(wav0).max())
+    if cache.builds != builds or not moved > max(1e-3, 10 * err) or not back <= tol:
+        fail(f"[main] {dname}: in-place weights: builds {builds} -> {cache.builds}, the "
+             f"replay moved {moved:.2e} of max, restored it is {back:.2e} from the first")
+    log(f"[main] {dname} in-place weights: the next replay moved {moved:.2e} of max, no "
+        f"rebuild; restored: {back:.2e} from the first replay")
+    conv = convs[0]
+    original = conv.weight_v
+    rebuilds = cache.rebuilds
+    conv.weight_v = torch.nn.Parameter(original.detach().flip(1).clone())
+    against_eager("a replaced weight_v Parameter (input channels reversed), rebuilt",
+                  replayed=False)
+    _, err_new = against_eager("the replaced Parameter, captured again")
+    rebuild_s = cache.get(key).capture_seconds
+    conv.weight_v = original
+    against_eager("the original Parameter put back, rebuilt", replayed=False)
+    _, err_restored = against_eager("the original Parameter, captured again")
+    if cache.rebuilds != rebuilds + 2:
+        fail(f"[main] {dname}: {cache.rebuilds - rebuilds} rebuilds for two replaced Parameters")
+    log(f"[main] {dname} replaced Parameter: rebuilt ({cache.rebuilds - rebuilds} rebuilds, "
+        f"replacing it and putting it back; warm-up run + capture {rebuild_s:.2f} s)")
+
+    # two alphas through the one program
+    n_progs, builds = len(cache), cache.builds
+    _, err_13 = against_eager("alpha 1.3", 1.3)
+    _, err_10 = against_eager("alpha 1.0 again", 1.0)
+    if (len(cache), cache.builds) != (n_progs, builds):
+        fail(f"[main] {dname}: alpha 1.3 built a program ({n_progs} -> {len(cache)})")
+    pool = cache.pool_bytes()
+    log(f"[main] {dname} bench bucket: first call (eager) {first_s:.3f} s, second (warm-up "
+        f"run + capture {capture_s:.3f} s, replay) {second_s:.3f} s; {len(cache)} program, "
+        f"{cache.builds} builds; pool {pool / 2**20:.1f} MiB; run in turns (median of "
+        f"{GRAPH_TURNS}): eager {eager_ms:.2f} ms, replayed {replay_ms:.2f} ms "
+        f"({eager_ms / replay_ms:.2f}x); card busy in one call (torch.profiler) replayed "
+        + (f"{busy_replay:.2f} ms, {busy_replay / replay_ms:.1%} of the replayed run"
+           if busy_replay else "not measured")
+        + (f", eager {busy_eager:.2f} ms, {busy_eager / eager_ms:.1%} of the eager run"
+           if busy_eager else "")
+        + f"; launches per replay {counted} (accounting), {traced} (profiler; eager call "
+        f"{traced_eager})")
+    return dict(first_call_s=first_s, second_call_s=second_s, capture_s=capture_s,
+                recapture_s=rebuild_s, pool_bytes=pool, err_replay=err, err_live=err_live,
+                err_replaced=err_new, err_restored=err_restored, err_alpha13=err_13,
+                err_alpha10=err_10, moved=moved, eager_ms=eager_ms, replay_ms=replay_ms,
+                runs_ms=runs, busy_replay_ms=busy_replay, busy_eager_ms=busy_eager,
+                launches_counted=counted, launches_traced=traced,
+                launches_traced_eager=traced_eager, programs=len(cache), builds=cache.builds,
+                rebuilds=cache.rebuilds)
+
+
+def phase_main(dev, cfg, vocab, model) -> dict:
     from emotivoice_tpu_torch.serving.batcher import MicroBatcher
     from emotivoice_tpu_torch.serving.engine import SynthesisEngine, SynthesisRequest
 
@@ -633,80 +824,91 @@ def phase_main(dev, cfg, vocab, model) -> dict:
         )
 
     engine = SynthesisEngine(cfg, model, vocab, device=dev, dtype="f32", frames_per_token=4.0)
-    gen_calls = [0]
+    engine_calls = [0]
     run = engine.run
 
     def counted_run(*a, **kw):
-        gen_calls[0] += 1
+        engine_calls[0] += 1
         return run(*a, **kw)
 
     engine.run = counted_run
     mixed = [req(n) for n in (7, 20, 33, 50)] + [req(n, 1.3) for n in (12, 40, 64)]
     bench = [req(BENCH_T_TEXT) for _ in range(BENCH_B)]
 
-    fused_residual_unit.launches = 0
-    fused_mrf_stage.launches = 0
     batcher = MicroBatcher(engine, max_batch=BENCH_B, max_wait_ms=20.0)
-    shapes, hooks = watch_stage_shapes(model)
-    try:
-        t0 = time.perf_counter()
-        results = batcher.submit_many(mixed)
-        results += batcher.submit_many(bench)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    finally:
-        batcher.close()
-        for h in hooks:
-            h.remove()
-    launches = {"fused_residual_unit": fused_residual_unit.launches,
-                "fused_mrf_stage": fused_mrf_stage.launches}
-    calls = gen_calls[0]
-    log(f"[main] {len(results)} requests in {batcher.dispatches} batches, {calls} generator "
-        f"calls, {wall:.2f} s; launches {launches}; saturation redispatches "
-        f"{engine.saturation_redispatches}")
-    for r, q in zip(results, mixed + bench):
+    # As a server starts: warm the bench bucket (its first call and capture),
+    # then traffic; the mixed requests come twice, so their buckets' second
+    # calls capture and replay.
+    with PathWatch() as watch:  # the counts are set to 0 here and read on exit
+        try:
+            t0 = time.perf_counter()
+            engine.warmup([(BENCH_B, BENCH_T_TEXT, BENCH_FRAMES)])
+            warm_calls = engine_calls[0]
+            results = batcher.submit_many(mixed)
+            results += batcher.submit_many(bench)
+            results += batcher.submit_many(mixed)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            batcher.close()
+    launches = watch.launches
+    cache = engine.programs[0]
+    calls, builds = engine_calls[0], cache.builds
+    capture_s = cache.capture_seconds()
+    log(f"[main] {len(results)} requests in {batcher.dispatches} batches after {warm_calls} warmup "
+        f"call(s), {calls} engine calls in all, {builds} bucket programs built, "
+        f"{watch.captures} captured; {watch.calls} generator calls ({builds} first calls, "
+        f"{watch.captures} warm-up runs of a capture, {watch.replays} replays), {wall:.2f} s; "
+        f"launches {launches}; "
+        f"saturation redispatches {engine.saturation_redispatches}; capture seconds per bucket "
+        + ", ".join(f"{k}: {v:.3f}" for k, v in capture_s.items()))
+    for r, q in zip(results, mixed + bench + mixed):
         if not np.all(np.isfinite(r.wav)):
             fail("non-finite waveform")
         if r.n_frames < 1 or r.wav.shape != (r.n_frames * engine.up,):
             fail(f"waveform length {r.wav.shape} for {r.n_frames} frames")
-    if launches["fused_residual_unit"] != 18 * calls or launches["fused_mrf_stage"] != 2 * calls:
-        fail(f"launch counters {launches} != 18/2 per generator call x {calls}")
+    # a generator call is a program's first call (one per build), the
+    # warm-up run of a capture, or a replay
+    if (watch.calls != calls + watch.captures or watch.replays != calls - builds
+            or not watch.replays or watch.captures != len(capture_s)):
+        fail(f"[main] {calls} engine calls, {builds} builds and {len(capture_s)} captured "
+             f"programs, but {watch.calls} generator calls, {watch.replays} replays and "
+             f"{watch.captures} captures")
     peak = max(float(np.abs(r.wav).max()) for r in results)
     log(f"[main] waveforms finite, lengths = n_frames * {engine.up}, max |wav| {peak:.3f}")
-    path = check_path_kernels(dev, model, shapes, "main")
+    path = watch.check(dev, "main")
 
-    # xRT at the bench bucket, and where the time goes
+    # xRT at the bench bucket, the program against the eager forward, and
+    # where the time goes
     toks = rng.randint(2, len(vocab), (BENCH_B, BENCH_T_TEXT))
     args = (toks, np.full(BENCH_B, BENCH_T_TEXT), rng.randint(0, cfg.am.n_speaker, BENCH_B),
             rng.randn(BENCH_B, d).astype(np.float32), rng.randn(BENCH_B, d).astype(np.float32))
     audio_s = BENCH_B * BENCH_FRAMES * cfg.audio.hop_length / cfg.audio.sampling_rate
-    xrt = {}
+    xrt, graphs = {}, {}
     for dname in ("f32", "bf16"):
-        eng = SynthesisEngine(cfg, model, vocab, device=dev, dtype=dname)
-        eng.run(*args, BENCH_FRAMES, 1.0)  # warm
-        times = []
-        for _ in range(3):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            eng.run(*args, BENCH_FRAMES, 1.0)
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
-        dt = float(np.median(times))
-        # split: acoustic model vs vocoder (device time)
+        g = graphs[dname] = bench_bucket_program(dev, cfg, vocab, model, dname, args)
+        dt = g["replay_ms"] / 1e3
+        # split: acoustic model vs vocoder (device time, eager)
+        dtype = torch.float32 if dname == "f32" else torch.bfloat16
         tt = [torch.as_tensor(a, device=dev) for a in args]
         with torch.inference_mode():
             am_ms = timed(lambda: model.am(tt[0], tt[1], tt[2], tt[3].float(), tt[4].float(),
-                                           max_frames=BENCH_FRAMES, dtype=eng.dtype), iters=2)
+                                           max_frames=BENCH_FRAMES, dtype=dtype), iters=2)
             mel = model.am(tt[0], tt[1], tt[2], tt[3].float(), tt[4].float(),
-                           max_frames=BENCH_FRAMES, dtype=eng.dtype)["dec_outputs"]
-            voc_ms = timed(lambda: model.generator(mel, dtype=eng.dtype), iters=2)
+                           max_frames=BENCH_FRAMES, dtype=dtype)["dec_outputs"]
+            voc_ms = timed(lambda: model.generator(mel, dtype=dtype), iters=2)
         xrt[dname] = dict(seconds=dt, xrt=audio_s / dt, am_ms=am_ms, vocoder_ms=voc_ms,
-                          runs_s=times)
+                          eager_seconds=g["eager_ms"] / 1e3, xrt_eager=audio_s * 1e3 / g["eager_ms"])
         log(f"[main] bench bucket B={BENCH_B} T_text={BENCH_T_TEXT} frames={BENCH_FRAMES} "
-            f"({audio_s:.1f} s audio) {dname}: {dt * 1e3:.1f} ms/call, xRT {audio_s / dt:.1f}; "
-            f"device ms: acoustic {am_ms:.1f}, vocoder {voc_ms:.1f}")
-    report["main"] = dict(launches=launches, generator_calls=calls, wall_s=wall, xrt=xrt)
-    return dict(launches=launches, xrt=xrt, path=path)
+            f"({audio_s:.1f} s audio) {dname}: replayed {dt * 1e3:.1f} ms/call, xRT "
+            f"{audio_s / dt:.1f} (eager {g['eager_ms']:.1f} ms, xRT "
+            f"{audio_s * 1e3 / g['eager_ms']:.1f}); eager device ms: acoustic {am_ms:.1f}, "
+            f"vocoder {voc_ms:.1f}")
+    report["main"] = dict(launches=launches, engine_calls=calls, builds=builds,
+                          generator_calls=watch.calls, replays=watch.replays, wall_s=wall,
+                          xrt=xrt, graphs=graphs,
+                          capture_s={str(k): v for k, v in capture_s.items()})
+    return dict(launches=launches, xrt=xrt, path=path, graphs=graphs)
 
 
 # ---------------------------------------------------------------------------
@@ -1024,10 +1226,9 @@ def embed_contention(embedder, engine, profiled: bool) -> dict:
 def phase_serve(dev, cfg, vocab, model, embedder, cpu_model, profiled: bool) -> dict:
     from emotivoice_tpu_torch.frontend.en import read_lexicon
     from emotivoice_tpu_torch.frontend.mixed import g2p_cn_en
-    from emotivoice_tpu_torch.ops.cuda.mrf_stage import fused_mrf_stage
-    from emotivoice_tpu_torch.ops.cuda.resblock import fused_residual_unit
     from emotivoice_tpu_torch.serving import api
     from emotivoice_tpu_torch.serving.engine import SynthesisEngine
+    from emotivoice_tpu_torch.serving.programs import BucketProgram
 
     found = {m: importlib.util.find_spec(m) is not None for m in OPTIONAL}
     log(f"[serve] optional packages: {found}")
@@ -1039,18 +1240,22 @@ def phase_serve(dev, cfg, vocab, model, embedder, cpu_model, profiled: bool) -> 
     engine = SynthesisEngine(cfg, model, vocab, device=dev, dtype="f32")
     tl = threading.local()
     records, records_lock = [], threading.Lock()
-    calls = [0]  # generator calls; the hook runs inside the engine's serialized run
+    calls = [0]  # engine calls: one bucket program's run each, inside the engine's lock
     served = []  # traffic's generator calls, inputs and outputs, for the replay on the CPU
+    program_run = BucketProgram.run
 
-    def on_call(_module, args, kwargs, out):
+    def on_call(prog, arrays, alpha, capture=False):
+        wav, n_frames = program_run(prog, arrays, alpha, capture)
         calls[0] += 1
-        if bool(args[0].any()):  # the warmup's rows are all pad tokens
+        if arrays[0].any():  # the warmup's rows are all pad tokens
+            # the outputs of the pool's graph hold until the lock is released
             served.append(dict(
-                args=[a.cpu() for a in args], tokens=args[0].shape[1], **kwargs,
-                wav=out["wav_predictions"].cpu(), durations=out["durations"].cpu()))
+                args=[torch.as_tensor(a) for a in arrays], tokens=arrays[0].shape[1],
+                max_frames=prog.max_frames, alpha=float(alpha), dtype=prog.dtype,
+                wav=torch.from_numpy(wav), durations=watch.durations[id(prog)].cpu()))
+        return wav, n_frames
 
-    hook = model.register_forward_hook(on_call, with_kwargs=True)
-    shapes, shape_hooks = watch_stage_shapes(model)
+    BucketProgram.run = on_call
 
     def rec():
         return getattr(tl, "rec", None) or {}
@@ -1110,6 +1315,7 @@ def phase_serve(dev, cfg, vocab, model, embedder, cpu_model, profiled: bool) -> 
     port = server.server_address[1]
     serving = threading.Thread(target=server.serve_forever, daemon=True, name="http-server")
     serving.start()
+    watch = PathWatch()
     grid = engine.warmup_grid(batches=(1,))
     progress = []
     answers, sent_ok, sent_err = {}, 0, 0
@@ -1117,8 +1323,7 @@ def phase_serve(dev, cfg, vocab, model, embedder, cpu_model, profiled: bool) -> 
         # Cut grid: batch 1 only, f32 (the full grid's B=16 shapes at 2048
         # frames are several bench buckets each in f32). The counts are set
         # to 0 before the daemon exists, so nothing can launch in between.
-        fused_residual_unit.launches = 0
-        fused_mrf_stage.launches = 0
+        watch.__enter__()
         calls[0] = 0
         warm = engine.warmup_background(batches=(1,),
                                         progress_cb=lambda i, n: progress.append(i))
@@ -1201,9 +1406,11 @@ def phase_serve(dev, cfg, vocab, model, embedder, cpu_model, profiled: bool) -> 
             fail("background warmup did not finish")
         torch.cuda.synchronize()
         # Every answer is back and the daemon has ended: nothing launches now.
-        launches = {"fused_residual_unit": fused_residual_unit.launches,
-                    "fused_mrf_stage": fused_mrf_stage.launches}
+        watch.__exit__(None, None, None)
+        launches = watch.launches
         gen_calls = calls[0]
+        cache = engine.programs[0]
+        pool = cache.pool_bytes()
         status, _, _, body = _http(port, "GET", "/v1/metrics")
         if status != 200:
             fail(f"/v1/metrics: {status}")
@@ -1213,9 +1420,9 @@ def phase_serve(dev, cfg, vocab, model, embedder, cpu_model, profiled: bool) -> 
         server.server_close()
         serving.join(timeout=60)
         service.close()
-        hook.remove()
-        for h in shape_hooks:
-            h.remove()
+        BucketProgram.run = program_run
+        if "_forward" in vars(watch) and "launches" not in vars(watch):  # left early
+            watch.__exit__(None, None, None)
         api.write_wav = write_wav
     if serving.is_alive() or batcher._worker.is_alive():
         fail("the server or the batcher's worker did not stop")
@@ -1252,16 +1459,27 @@ def phase_serve(dev, cfg, vocab, model, embedder, cpu_model, profiled: bool) -> 
     if metrics["duration_overflow"] != overflow or overflow["truncations"]:
         fail(f"duration_overflow {metrics['duration_overflow']} vs engine {overflow}")
     if gen_calls != b["dispatches"] + overflow["redispatches"] + len(grid):
-        fail(f"{gen_calls} generator calls for {b['dispatches']} dispatches + "
+        fail(f"{gen_calls} engine calls for {b['dispatches']} dispatches + "
              f"{overflow['redispatches']} redispatches + {len(grid)} warmup shapes")
-    if launches["fused_residual_unit"] != 18 * gen_calls or launches["fused_mrf_stage"] != 2 * gen_calls:
-        fail(f"launch counters {launches} != 18/2 per generator call x {gen_calls}")
+    capture_s = sorted(cache.capture_seconds().values())
+    # a generator call is a program's first call (one per build), the
+    # warm-up run of a capture, or a replay; the warmup captured every grid shape
+    if (watch.calls != gen_calls + watch.captures or watch.replays != gen_calls - cache.builds
+            or watch.captures != len(capture_s) or len(capture_s) < len(grid)):
+        fail(f"{gen_calls} engine calls, {cache.builds} program builds and {len(capture_s)} "
+             f"captured programs ({len(grid)} grid shapes), but {watch.calls} generator calls, "
+             f"{watch.replays} replays and {watch.captures} captures")
     if engine.warmup_failures or progress != list(range(1, len(grid) + 1)):
         fail(f"background warmup: {engine.warmup_failures} failures, progress {progress}")
     log(f"[serve] {sent_ok} answered + {sent_err} refused requests in {traffic_s:.2f} s while the "
         f"background warmup walked {len(grid)} shapes (batch 1, f32; 0 failures); "
         f"{chunks_sent} chunks in {b['dispatches']} dispatches (mean batch {b['mean_batch']}), "
-        f"{gen_calls} generator calls, launches {launches}, duration overflow {overflow}")
+        f"{gen_calls} engine calls ({watch.replays} replays), {cache.builds} bucket programs "
+        f"built, {len(capture_s)} captured (capture s min {capture_s[0]:.3f} / median "
+        f"{capture_s[len(capture_s) // 2]:.3f} / max {capture_s[-1]:.3f}, total "
+        f"{sum(capture_s):.2f}), {watch.calls} generator calls, launches "
+        f"{launches}, duration overflow {overflow}; the programs' shared graph pool "
+        f"{pool / 2**20:.1f} MiB after the grid")
     lat, rtf = metrics["latency_s"], metrics["rtf"]
     log(f"[serve] /v1/metrics: latency p50 {lat['p50'] * 1e3:.1f} ms, p95 {lat['p95'] * 1e3:.1f} ms; "
         f"RTF p50 {rtf['p50']:.4f}; {metrics['audio_seconds_served']} s of audio")
@@ -1278,7 +1496,7 @@ def phase_serve(dev, cfg, vocab, model, embedder, cpu_model, profiled: bool) -> 
             + "; synth = wait for the batch + the generator call")
     # The kernels at every shape this phase gave them (traffic's batch
     # buckets and the warmup grid), then whole served calls against the CPU.
-    path = check_path_kernels(dev, model, shapes, "serve")
+    path = watch.check(dev, "serve")
     served_shapes = sorted({(c["args"][0].shape[0], c["tokens"], c["max_frames"]) for c in served})
     log(f"[serve] traffic's generator calls (batch, tokens, frames): {served_shapes}")
     if len(served) != b["dispatches"] + overflow["redispatches"]:
@@ -1286,7 +1504,9 @@ def phase_serve(dev, cfg, vocab, model, embedder, cpu_model, profiled: bool) -> 
     replays = replay_on_cpu(cpu_model, served)
     contention = embed_contention(embedder, engine, profiled)
     report["serve"] = dict(optional=found, metrics=metrics, launches=launches,
-                           generator_calls=gen_calls, warmup_shapes=len(grid),
+                           engine_calls=gen_calls, generator_calls=watch.calls,
+                           builds=cache.builds, capture_s=capture_s, pool_bytes=pool,
+                           warmup_shapes=len(grid),
                            traffic_s=traffic_s, host_split_ms=split,
                            requests=records, served_shapes=served_shapes, replays=replays,
                            embed_contention_ms=contention)
@@ -1761,7 +1981,8 @@ def phase_train_curves(dev) -> dict:
 def phase_dp_serve(dev, cfg, vocab, model) -> dict:
     """A two-replica SynthesisEngine on the one card against the one-replica
     engine, at the bench bucket, in f32 and bf16: equal durations, waveforms
-    within TOL_CPU x max, 18 + 2 launches per replica call, both kernels
+    within TOL_CPU x max, each replica its own bucket program, 18 + 2
+    launches per replayed replica call, both kernels
     held against their plain versions at every shape a replica gave them.
     Both replicas share one card, so this shows the engine is right on the
     device, not how it scales over cards."""
@@ -1785,19 +2006,30 @@ def phase_dp_serve(dev, cfg, vocab, model) -> dict:
         parts = [one.run(*(a[i * half:(i + 1) * half] for a in args), BENCH_FRAMES, 1.0)
                  for i in range(len(two.replicas))]
         wav_h, n_h = np.concatenate([w for w, _ in parts]), np.concatenate([n for _, n in parts])
+        # The first call builds each replica's program and runs it eagerly;
+        # the hooks record the shapes there. The second captures the
+        # replicas' graphs (one at a time on the card) and replays them. The
+        # third replays them, and is counted.
         hooks, recorded = [], []
         for replica in two.replicas:
             s, h = watch_stage_shapes(replica)
             recorded.append(s)
             hooks += h
-        fused_residual_unit.launches = 0
-        fused_mrf_stage.launches = 0
         try:
-            wav2, n2 = two.run(*args, BENCH_FRAMES, 1.0)
-            torch.cuda.synchronize()
+            two.run(*args, BENCH_FRAMES, 1.0)
         finally:
             for h in hooks:
                 h.remove()
+        if [c.builds for c in two.programs] != [1] * len(two.replicas):
+            fail(f"[dp_serve] {dname}: builds per replica {[c.builds for c in two.programs]}")
+        two.run(*args, BENCH_FRAMES, 1.0)
+        key = (half, BENCH_T_TEXT, BENCH_FRAMES)
+        if not all(c.get(key).graph is not None for c in two.programs):
+            fail(f"[dp_serve] {dname}: a replica's second call did not capture its program")
+        fused_residual_unit.launches = 0
+        fused_mrf_stage.launches = 0
+        wav2, n2 = two.run(*args, BENCH_FRAMES, 1.0)
+        torch.cuda.synchronize()
         launches = {"fused_residual_unit": fused_residual_unit.launches,
                     "fused_mrf_stage": fused_mrf_stage.launches}
         calls = len(two.replicas)
@@ -2992,35 +3224,82 @@ class PathWatch:
     """Counts the calls of every HiFi-GAN generator that runs inside the
     `with` block with its kernels on (the tools build their own models) and
     records the (B, T, C, dtype) each hands to a kernel; the launch counters
-    are set to 0 on entry and read on exit."""
+    are set to 0 on entry and read on exit. A generator call is an eager
+    forward (a bucket program's first call, or the warm-up run before its
+    capture, among them) or a replay of a bucket program's CUDA graph; a
+    capture runs the forward but launches nothing, and is not counted, but
+    its tally of launches must be 18 + 2 (V1). A replay reads the shapes
+    that the program's eager forwards or capture recorded, so a program
+    whose forward did not run inside the block must not replay there. `durations[id(program)]` is the durations
+    tensor of each program's last forward (for a captured graph, the
+    static output each replay refills)."""
 
     def __enter__(self):
         from emotivoice_tpu_torch.models.hifigan import HiFiGANGenerator
+        from emotivoice_tpu_torch.ops.cuda import build
         from emotivoice_tpu_torch.ops.cuda.mrf_stage import fused_mrf_stage
         from emotivoice_tpu_torch.ops.cuda.resblock import fused_residual_unit
+        from emotivoice_tpu_torch.serving.programs import BucketProgram
 
         self.kernels = {"fused_residual_unit": fused_residual_unit,
                         "fused_mrf_stage": fused_mrf_stage}
-        self.calls, self.seen, self._hooks = 0, {}, []
+        self.calls, self.replays, self.captures, self.seen, self._hooks = 0, 0, 0, {}, []
+        self.durations, self.errors = {}, []  # errors: found on engine threads, failed in check
         self._cls, self._forward = HiFiGANGenerator, HiFiGANGenerator.forward
+        self._prog_cls = BucketProgram
+        self._prog = {name: getattr(BucketProgram, name)
+                      for name in ("_forward", "capture", "replay")}
         watch = self
 
         def forward(gen, *args, **kwargs):
             if gen.kernels:
-                if id(gen) not in watch.seen:
+                if id(gen) not in watch.seen:  # the hooks record a capture's shapes too
                     shapes, hooks = watch_stage_shapes(types.SimpleNamespace(generator=gen))
                     watch.seen[id(gen)] = (gen, shapes)
                     watch._hooks += hooks
-                watch.calls += 1
+                if not build.capturing():
+                    watch.calls += 1
             return watch._forward(gen, *args, **kwargs)
+
+        def prog_forward(prog):
+            out = watch._prog["_forward"](prog)
+            watch.durations[id(prog)] = out["durations"]
+            return out
+
+        def capture(prog):
+            captured = prog.graph is None
+            watch._prog["capture"](prog)
+            gen = prog.model.generator
+            if captured and prog.graph is not None and gen.kernels:
+                tally = {name: prog.launches.get(k, 0) for name, k in watch.kernels.items()}
+                want = dict(zip(watch.kernels, launches_per_call(gen.cfg)))
+                if tally != want:
+                    watch.errors.append(f"the capture of bucket {prog.key} recorded {tally} "
+                                        f"launches, not {want}")
+                watch.captures += 1
+
+        def replay(prog):
+            gen = prog.model.generator
+            if gen.kernels:
+                if id(prog) not in watch.durations:
+                    watch.errors.append(f"bucket {prog.key}'s program replayed in a watch that "
+                                        f"did not see its forward run: no shapes recorded")
+                watch.calls += 1
+                watch.replays += 1
+            return watch._prog["replay"](prog)
 
         for k in self.kernels.values():
             k.launches = 0
         HiFiGANGenerator.forward = forward
+        BucketProgram._forward = prog_forward
+        BucketProgram.capture = capture
+        BucketProgram.replay = replay
         return self
 
     def __exit__(self, *exc):
         self._cls.forward = self._forward
+        for name, fn in self._prog.items():
+            setattr(self._prog_cls, name, fn)
         for h in self._hooks:
             h.remove()
         self.launches = {name: k.launches for name, k in self.kernels.items()}
@@ -3028,7 +3307,10 @@ class PathWatch:
 
     def check(self, dev, tag: str) -> dict:
         """Launches of 18 + 2 (V1) per generator call, then both kernels
-        against their plain versions at every recorded shape."""
+        against their plain versions at every recorded shape; before them,
+        what the capture and replay hooks found."""
+        if self.errors:
+            fail(f"[{tag}] " + "; ".join(self.errors))
         if not self.calls:
             fail(f"[{tag}] no generator call ran with the kernels")
         per = None
@@ -3371,29 +3653,39 @@ def main() -> None:
     if "--tp-worker" in sys.argv:  # one rank of [tp_ranks], started by phase_tp_ranks
         return tp_worker(sys.argv[1:])
     args = p.parse_args()
-    card = phase_device()
+    seconds = report["phase_seconds"] = {}
+
+    def run(phase, *a):
+        start = time.perf_counter()
+        out = phase(*a)
+        seconds[phase.__name__] = time.perf_counter() - start
+        return out
+
+    card = run(phase_device)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
-    phase_build()
-    kern = phase_kernels(dev)
+    run(phase_build)
+    kern = run(phase_kernels, dev)
     cfg, vocab, model = _build_model()
-    main_out = phase_main(dev, cfg, vocab, model)
-    cpu_model = phase_cpu(dev, cfg, model)
-    embedder = phase_style(dev, args.profile)
-    serve_out = phase_serve(dev, cfg, vocab, model, embedder, cpu_model, args.profile)
-    dp_serve_out = phase_dp_serve(dev, cfg, vocab, model)
-    tp_serve_out = phase_tp_serve(dev, cfg, vocab, model)
-    train_out = phase_train(dev, args.profile)
-    curves_out = phase_train_curves(dev)
-    dp_train_out = phase_dp_train(dev)
-    tp_train_out = phase_tp_train(dev)
-    tp_ranks_out = phase_tp_ranks(dev, cfg, vocab, model)
-    phase_style_pretrain(dev)
-    phase_fallback(dev)
-    corpus_out = phase_corpus(dev)
-    sweep_out = phase_sweep(dev)
-    tools_out = phase_tools(dev, train_out, embedder)
+    main_out = run(phase_main, dev, cfg, vocab, model)
+    cpu_model = run(phase_cpu, dev, cfg, model)
+    embedder = run(phase_style, dev, args.profile)
+    serve_out = run(phase_serve, dev, cfg, vocab, model, embedder, cpu_model, args.profile)
+    dp_serve_out = run(phase_dp_serve, dev, cfg, vocab, model)
+    tp_serve_out = run(phase_tp_serve, dev, cfg, vocab, model)
+    train_out = run(phase_train, dev, args.profile)
+    curves_out = run(phase_train_curves, dev)
+    dp_train_out = run(phase_dp_train, dev)
+    tp_train_out = run(phase_tp_train, dev)
+    tp_ranks_out = run(phase_tp_ranks, dev, cfg, vocab, model)
+    run(phase_style_pretrain, dev)
+    run(phase_fallback, dev)
+    corpus_out = run(phase_corpus, dev)
+    sweep_out = run(phase_sweep, dev)
+    tools_out = run(phase_tools, dev, train_out, embedder)
+    log("[time] seconds per phase: " + ", ".join(f"{k[6:]} {v:.1f}" for k, v in seconds.items())
+        + f"; total {sum(seconds.values()):.1f}")
 
     kernels = []
     paths = [main_out["path"], serve_out["path"], train_out["path"], dp_serve_out["path"],

@@ -19,7 +19,7 @@ length. The search runs on the tensors' device (`ops/align.py`).
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Union
 
 import torch
 import torch.nn.functional as F
@@ -96,7 +96,7 @@ class PromptTTS(nn.Module):
         content_embedding: torch.Tensor,  # (B, bert_embedding)
         *,
         max_frames: Optional[int] = None,
-        alpha: float = 1.0,
+        alpha: Union[float, torch.Tensor] = 1.0,
         mel_targets: Optional[torch.Tensor] = None,  # (B, T_feats, n_mels)
         feats_lengths: Optional[torch.Tensor] = None,  # (B,)
         pitch_targets: Optional[torch.Tensor] = None,  # (B, T_feats) frame level

@@ -8,7 +8,7 @@ output; inference and validation (`cut=False`) vocode the whole mel.
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Union
 
 import torch
 from torch import nn
@@ -48,7 +48,7 @@ class JETSGenerator(nn.Module):
         content_embedding: torch.Tensor,
         *,
         max_frames: Optional[int] = None,
-        alpha: float = 1.0,
+        alpha: Union[float, torch.Tensor] = 1.0,
         dtype: torch.dtype = torch.float32,
         mel_targets: Optional[torch.Tensor] = None,
         feats_lengths: Optional[torch.Tensor] = None,
@@ -58,9 +58,11 @@ class JETSGenerator(nn.Module):
         start_idxs: Optional[torch.Tensor] = None,
     ) -> Dict[str, Any]:
         """`dtype` is the compute dtype (float32 or bfloat16); parameters
-        stay f32 and the waveform leaves f32. In training with `cut`, the
-        crop starts at `start_idxs` (the trainer draws them), or at frames
-        drawn from torch's global generator when none are given."""
+        stay f32 and the waveform leaves f32. `alpha` (duration scale,
+        1 / speed) is a float or a 0-d tensor on the model's device. In
+        training with `cut`, the crop starts at `start_idxs` (the trainer
+        draws them), or at frames drawn from torch's global generator when
+        none are given."""
         out = self.am(
             tokens, text_lengths, speaker, style_embedding, content_embedding,
             max_frames=max_frames, alpha=alpha, mel_targets=mel_targets,

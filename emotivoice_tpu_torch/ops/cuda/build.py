@@ -10,6 +10,7 @@ of the sources' and flags' hash lets a later process reuse the library.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import glob
 import hashlib
@@ -31,6 +32,7 @@ NVCC_FLAGS = [
 
 _lock = threading.Lock()
 _count_lock = threading.Lock()
+_capture = threading.local()  # .tally: launches recorded by a CUDA graph capture on this thread
 _lib: Optional[ctypes.CDLL] = None
 build_log = ""  # nvcc's output of the last build in this process (ptxas -v)
 build_seconds = 0.0  # wall time of that build (0 when the library was reused)
@@ -134,9 +136,39 @@ def load() -> ctypes.CDLL:
 
 def count_launch(wrapper) -> None:
     """Add one to a kernel wrapper's `launches` counter. The lock keeps the
-    count exact when several threads (engine replicas) launch at once."""
+    count exact when several threads (engine replicas) launch at once.
+    Inside `capturing_launches` on this thread the launch was recorded into
+    a CUDA graph, not run: it goes to the capture's tally, which each replay
+    adds (`add_launches`)."""
+    tally = getattr(_capture, "tally", None)
+    if tally is not None:
+        tally[wrapper] = tally.get(wrapper, 0) + 1
+        return
     with _count_lock:
         wrapper.launches += 1
+
+
+@contextlib.contextmanager
+def capturing_launches():
+    """Around a CUDA graph capture on this thread: yields the tally
+    {wrapper: launches} of the kernels the capture records."""
+    _capture.tally = tally = {}
+    try:
+        yield tally
+    finally:
+        _capture.tally = None
+
+
+def capturing() -> bool:
+    """Whether this thread is inside `capturing_launches`."""
+    return getattr(_capture, "tally", None) is not None
+
+
+def add_launches(tally) -> None:
+    """Count one replay of a captured graph: its tally onto the wrappers."""
+    with _count_lock:
+        for wrapper, n in tally.items():
+            wrapper.launches += n
 
 
 def check(err: int, name: str) -> None:

@@ -12,7 +12,7 @@ utterance's sum(d) are masked.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 
@@ -26,9 +26,11 @@ def gaussian_upsample(
     max_frames: int,
     feat_valid: Optional[torch.Tensor] = None,  # (B, max_frames) or None
     delta: float = 0.1,
-    alpha: float = 1.0,
+    alpha: Union[float, torch.Tensor] = 1.0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (upsampled (B, max_frames, D), mel_lengths (B,) int64)."""
+    """Returns (upsampled (B, max_frames, D), mel_lengths (B,) int64).
+    `alpha` (duration scale) may be a 0-d tensor on hs's device: a bucket
+    program's traced input, read without a host sync."""
     valid_f = text_valid.float()
     ds = ds.float() * alpha * valid_f
 

@@ -4,17 +4,24 @@ each split over a model group of devices, or on one replica split over the
 ranks of a model group, one shard per process (counterpart of
 `emotivoice_tpu/serving/engine.py` and its mesh's 'data' and 'model' axes).
 
-Requests are padded into (batch, text, mel) buckets from fixed ladders, so
-a later slice can capture one program per bucket. Padding rows carry one
-token and speaker 0. With several replicas a bucket is padded up to a
-multiple of their count and split evenly over them, as the JAX engine pads
-a batch to its mesh's data axis.
+Requests are padded into (batch, text, mel) buckets from fixed ladders,
+and each replica runs one program per bucket (`serving/programs.py`), as
+the JAX engine compiles one per bucket: on a card a CUDA graph, captured
+at the bucket's second call (its first is the eager warm-up run) or by the
+warmup, and replayed after; on the CPU the eager forward on the same static
+buffers. A replica split over a model group stays eager:
+its collectives and cross-device copies are not captured. Padding rows
+carry one token and speaker 0. With several replicas a bucket is padded up
+to a multiple of their count and split evenly over them, as the JAX engine
+pads a batch to its mesh's data axis.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
+import functools
 import logging
 import threading
 import time
@@ -29,6 +36,7 @@ from emotivoice_tpu_torch.frontend.tokens import TokenVocab
 from emotivoice_tpu_torch.models.jets import JETSGenerator
 from emotivoice_tpu_torch.parallel.mesh import make_mesh, split_rows
 from emotivoice_tpu_torch.parallel.tensor_parallel import RankGroup, tensor_parallel
+from emotivoice_tpu_torch.serving.programs import BucketProgram, ProgramCache
 from emotivoice_tpu_torch.utils.device import resolve_device, resolve_dtype
 
 DEFAULT_TEXT_BUCKETS = (16, 32, 48, 64, 96, 128, 192, 256)
@@ -86,10 +94,20 @@ class SynthesisEngine:
     `dtype` is the compute dtype ('f32' / 'bf16' or a torch dtype);
     parameters stay f32 and the waveform comes back f32.
 
+    Each replica on one device keeps its bucket programs in a
+    `programs.ProgramCache` (`programs[i]`, at most 128): on a card one
+    CUDA graph per (rows, t_text, max_frames) in one graph pool per
+    replica. A key's first call is the eager warm-up run, its second
+    captures the graph and replays it; the warmup methods, and any call
+    inside `capturing()`, capture right after the warm-up run. A replica
+    over a model group runs eagerly (`programs` is None).
+
     `run` is serialized: it holds one lock for the whole model call, so
     callers on several threads (the batcher's worker, the warmup daemon,
     a service with batching off) may rely on at most one bucket being in
-    progress on this engine at any time.
+    progress on this engine at any time. The graphs of a replica rely on
+    it: they share one pool, so a graph's outputs are copied to the host
+    before another may replay.
     """
 
     def __init__(
@@ -129,6 +147,15 @@ class SynthesisEngine:
         self.replicas = [tensor_parallel(m, g).eval() for m, g in
                          zip([model] + copies, [model_group] if model_group else self.groups)]
         self.model = self.replicas[0]
+        # By construction, not by catching an error: a replica over a model
+        # group runs collectives and cross-device copies, which stay eager.
+        self.programs: Optional[List[ProgramCache]] = None
+        if model_group is None and model_parallel == 1:
+            self.programs = []
+            for replica, (dev,) in zip(self.replicas, self.groups):
+                pool = torch.cuda.graph_pool_handle() if dev.type == "cuda" else None
+                self.programs.append(ProgramCache(functools.partial(
+                    BucketProgram, replica, device=dev, dtype=self.dtype, pool=pool), pool))
         self.vocab = vocab
         self.text_buckets = tuple(text_buckets)
         self.mel_buckets = tuple(mel_buckets)
@@ -150,6 +177,7 @@ class SynthesisEngine:
         # Shapes of the background grid that raised. The daemon survives
         # them, but they are counted and logged, never dropped silently.
         self.warmup_failures = 0
+        self._capturing = threading.local()  # .on: see capturing()
         # One bucket at a time (see the class docstring): the batcher's
         # worker and the warmup daemon may both be here, and the allocator's
         # peak is only exact when calls do not interleave. The replicas of
@@ -169,8 +197,31 @@ class SynthesisEngine:
         n = len(self.replicas)
         return -(-bb // n) * n
 
-    def _run_replica(self, i: int, arrays, max_frames: int, alpha: float):
-        """Replica i on its rows (inference mode is per thread)."""
+    @contextlib.contextmanager
+    def capturing(self):
+        """Within it, this thread's calls capture the bucket programs they
+        build right after the warm-up run, instead of at their second call:
+        for a caller that warms a bucket ahead of the calls it serves or
+        times (the warmup methods, a sweep's untimed dispatch)."""
+        outer = getattr(self._capturing, "on", False)
+        self._capturing.on = True
+        try:
+            yield
+        finally:
+            self._capturing.on = outer
+
+    def _run_replica(self, i: int, arrays, max_frames: int, alpha: float, capture: bool):
+        """Replica i on its rows: its program for the bucket, or the eager
+        forward over a model group. Called under `_run_lock`, which the
+        programs of a replica need (see the class docstring)."""
+        if self.programs is not None:
+            key = (*np.shape(arrays[0]), max_frames)
+            return self.programs[i].get(key).run(arrays, alpha, capture)
+        return self._run_eager(i, arrays, max_frames, alpha)
+
+    def _run_eager(self, i: int, arrays, max_frames: int, alpha: float):
+        """Replica i's forward, launched op by op (inference mode is per
+        thread)."""
         dev = self.groups[i][0]
         tokens, lengths, speaker, style, content = arrays
         with torch.inference_mode():
@@ -194,11 +245,12 @@ class SynthesisEngine:
         multiple of n: replica i takes rows [i B/n, (i+1) B/n)."""
         arrays = (tokens, lengths, speaker, style, content)
         n = len(self.replicas)
+        capture = getattr(self._capturing, "on", False)
         with self._run_lock:
             if n == 1:
-                return self._run_replica(0, arrays, max_frames, alpha)
+                return self._run_replica(0, arrays, max_frames, alpha, capture)
             futures = [self._pool.submit(self._run_replica, i, tuple(a[rows] for a in arrays),
-                                         max_frames, alpha)
+                                         max_frames, alpha, capture)
                        for i, rows in enumerate(split_rows(len(tokens), n))]
             parts = [f.result() for f in futures]
             return (np.concatenate([w for w, _ in parts]),
@@ -293,14 +345,16 @@ class SynthesisEngine:
         n = len(self.replicas)
         rows = -(-rows // n) * n
         d = self.cfg.am.bert_embedding
-        self.run(
+        with self.capturing():
+            self.run(
             np.zeros((rows, t_text), np.int64), np.ones((rows,), np.int64),
-            np.zeros((rows,), np.int64), np.zeros((rows, d), np.float32),
-            np.zeros((rows, d), np.float32), max_frames, 1.0,
-        )
+                np.zeros((rows,), np.int64), np.zeros((rows, d), np.float32),
+                np.zeros((rows, d), np.float32), max_frames, 1.0,
+            )
 
     def _warm_one(self, b: int, t_text: int, max_frames: int):
-        """Run one (batch, text, mel) bucket on dummy inputs."""
+        """Run one (batch, text, mel) bucket on dummy inputs, which builds its
+        program on every replica."""
         self._run_dummy(self.padded_rows(b), t_text, max_frames)
 
     def warmup_grid(self, batches: Sequence[int] = (1, 2, 4, 8, 16)) -> List[Tuple[int, int, int]]:
@@ -328,9 +382,10 @@ class SynthesisEngine:
     ) -> threading.Thread:
         """Warm the production bucket grid on a daemon thread.
 
-        `warmup()` covers only a handful of shapes. Nothing compiles per
-        shape here, but the first call of a shape still pays cuDNN's
-        algorithm choice and the allocator's growth; this walks
+        `warmup()` covers only a handful of shapes. Warming a shape builds
+        its bucket program on every replica (on a card a warm-up run, where
+        cuDNN chooses its algorithms and the allocator grows, then the CUDA
+        graph's capture); this walks
         `warmup_grid(batches)` in the background while the server is already
         answering, yielding to live traffic before every shape. A shape that
         raises does not end the thread: it adds one to `warmup_failures` and
@@ -366,7 +421,8 @@ class SynthesisEngine:
 
     def warmup(self, shapes: Optional[List[Tuple[int, int, int]]] = None):
         """Run common (batch, text, mel) buckets once on dummy inputs, so the
-        kernel build and first-call costs are not paid by a user request.
+        kernel build and the bucket programs' builds are not paid by a user
+        request.
 
         A shape that traffic would pick goes through `synthesize_batch`, so
         warmup touches the same batch-bucket padding as production; a
@@ -387,4 +443,5 @@ class SynthesisEngine:
                     style_embedding=np.zeros(d, np.float32),
                     content_embedding=np.zeros(d, np.float32),
                 )
-                self.synthesize_batch([req] * b)
+                with self.capturing():
+                    self.synthesize_batch([req] * b)

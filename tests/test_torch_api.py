@@ -693,11 +693,10 @@ def test_synthesize_cli_with_checkpoints(tmp_path, monkeypatch):
     assert pcm16_bytes(plain.wav) != pcm16_bytes(want[0].wav)
 
 
-def test_generator_checkpoint_layouts(tmp_path):
-    """load_jets_generator takes legacy weight-norm names and folded
-    weights too, and raises on a checkpoint that lacks a parameter."""
+def _checkpoint_models():
+    """(tiny config, a seeded generator whose weight-norm gains are not
+    ||v||, its state dict)."""
     import emotivoice_tpu_torch.config as pcfg
-    from emotivoice_tpu_torch.convert.from_reference import load_jets_generator
     from emotivoice_tpu_torch.models.jets import JETSGenerator, init_random_
 
     tiny = pcfg.tiny_test_config()
@@ -705,23 +704,68 @@ def test_generator_checkpoint_layouts(tmp_path):
     for p in model.parameters():  # gains that are not ||v||, so the fold matters
         if p.dim() == 3 and p.shape[1:] == (1, 1):
             p.data *= 1.5
-    sd = model.state_dict()
-    mel = torch.randn(1, 12, tiny.am.n_mels)
+    return tiny, model, model.state_dict()
+
+
+def _folded_checkpoint(sd):
+    """The state dict with every weight-norm pair folded into `weight`."""
+    folded = {}
+    for k, v in sd.items():
+        if k.endswith(".weight_g"):
+            vv = sd[k[:-2] + "_v"]
+            norm = torch.sqrt(torch.sum(vv * vv, dim=(1, 2), keepdim=True))
+            folded[k[:-2]] = v * vv / norm
+        elif not k.endswith(".weight_v"):
+            folded[k] = v
+    return folded
+
+
+def _mel(n_mels: int, seed: int) -> torch.Tensor:
+    return torch.randn(1, 12, n_mels, generator=torch.Generator().manual_seed(seed))
+
+
+def test_generator_checkpoint_layouts(tmp_path):
+    """load_jets_generator takes legacy weight-norm names and folded
+    weights too, and raises on a checkpoint that lacks a parameter."""
+    from emotivoice_tpu_torch.convert.from_reference import load_jets_generator
+    from emotivoice_tpu_torch.models.hifigan import WeightNorm
+    from emotivoice_tpu_torch.models.jets import JETSGenerator
+
+    tiny, model, sd = _checkpoint_models()
+    mel = _mel(tiny.am.n_mels, 0)
     with torch.no_grad():
         want = model.generator(mel)
         legacy = load_jets_generator(JETSGenerator(tiny), {"generator": sd})
         torch.testing.assert_close(legacy.generator(mel), want, rtol=0, atol=0)
-        folded = {}
-        for k, v in sd.items():
-            if k.endswith(".weight_g"):
-                vv = sd[k[:-2] + "_v"]
-                norm = torch.sqrt(torch.sum(vv * vv, dim=(1, 2), keepdim=True))
-                folded[k[:-2]] = v * vv / norm
-            elif not k.endswith(".weight_v"):
-                folded[k] = v
-        got = load_jets_generator(JETSGenerator(tiny), folded).generator(mel)
+        loaded = load_jets_generator(JETSGenerator(tiny), _folded_checkpoint(sd))
+        # The checkpoint's folded weights come back within f32 rounding: the
+        # loader takes g = ||W||, v = W, and the model folds g v / ||v|| again.
+        pairs = [(a, b) for a, b in zip(model.modules(), loaded.modules())
+                 if isinstance(a, WeightNorm)]
+        assert pairs
+        for a, b in pairs:
+            torch.testing.assert_close(b.folded(), a.folded(), rtol=1e-6, atol=0)
+        got = loaded.generator(mel)
         assert float(want.abs().max()) > 0.05
-        torch.testing.assert_close(got, want, rtol=0, atol=1e-4)  # the fold rounds once more
+        # That one extra rounding, amplified through the generator: over 400
+        # seeded mels the worst is 1.99e-4 (`PYTHONPATH=.:tests python
+        # tests/test_torch_api.py`).
+        torch.testing.assert_close(got, want, rtol=0, atol=5e-4)
     del sd["am.to_mel.weight"]
     with pytest.raises(KeyError, match="am.to_mel.weight"):
         load_jets_generator(JETSGenerator(tiny), sd)
+
+
+if __name__ == "__main__":
+    # The sweep behind test_generator_checkpoint_layouts' bound: the same
+    # comparison on 400 seeded mels, its worst case and where it fell.
+    from emotivoice_tpu_torch.convert.from_reference import load_jets_generator
+    from emotivoice_tpu_torch.models.jets import JETSGenerator
+
+    tiny, model, sd = _checkpoint_models()
+    loaded = load_jets_generator(JETSGenerator(tiny), _folded_checkpoint(sd))
+    with torch.no_grad():
+        errs = [float((loaded.generator(m) - model.generator(m)).abs().max())
+                for m in (_mel(tiny.am.n_mels, seed) for seed in range(400))]
+    print(f"worst {max(errs):.3g} at seed {int(np.argmax(errs))}; "
+          f"{sum(e > 1e-4 for e in errs)} of 400 above 1e-4")

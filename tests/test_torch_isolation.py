@@ -18,7 +18,7 @@ TRAINING_SLICE = {f"emotivoice_tpu_torch.{m}" for m in (
     "train")}
 PARALLEL_SLICE = {f"emotivoice_tpu_torch.{m}" for m in (
     "parallel", "parallel.multihost", "parallel.data_parallel", "training.style_pretrain",
-    "serve", "serving.engine")}
+    "serve", "serving.engine", "serving.programs")}
 TOOLS_SLICE = {f"emotivoice_tpu_torch.{m}" for m in (
     "utils.native", "utils.audio_io", "tools", "tools.synthesize_corpus", "tools.sweep_voices",
     "tools.verify_released_weights", "tools.prepare_ljspeech", "tools.prepare_databaker",
