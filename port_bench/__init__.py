@@ -1,0 +1,1 @@
+"""Benchmark of `emotivoice_tpu_torch` on an NVIDIA H100 (see README.md)."""

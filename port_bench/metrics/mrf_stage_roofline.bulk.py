@@ -1,0 +1,7 @@
+"""mrf_stage_roofline.bulk: % of the mrf_stage kernel's roofline bound reached in the traced sub-window (readers.roofline)."""
+
+from port_bench.readers import roofline
+
+
+def read(view):
+    return roofline(view, "mrf_stage")

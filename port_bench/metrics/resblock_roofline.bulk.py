@@ -1,0 +1,7 @@
+"""resblock_roofline.bulk: % of the resblock kernel's roofline bound reached in the traced sub-window (readers.roofline)."""
+
+from port_bench.readers import roofline
+
+
+def read(view):
+    return roofline(view, "resblock")
