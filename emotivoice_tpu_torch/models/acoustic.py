@@ -35,6 +35,7 @@ from emotivoice_tpu_torch.models.variance import (
 )
 from emotivoice_tpu_torch.ops.align import average_by_path, beta_binomial_prior, viterbi_decode
 from emotivoice_tpu_torch.ops.upsample import gaussian_upsample
+from emotivoice_tpu_torch.utils import marks
 from emotivoice_tpu_torch.utils.masks import sequence_mask
 
 
@@ -115,6 +116,7 @@ class PromptTTS(nn.Module):
         x = self._condition(
             tokens, text_valid, speaker, style_embedding, content_embedding, dtype
         )
+        marks.mark("encoder")
         out: Dict[str, torch.Tensor] = {"input_lengths": text_lengths}
         p_outs = self.pitch_predictor(x, text_valid)
         e_outs = self.energy_predictor(x, text_valid)
@@ -147,6 +149,7 @@ class PromptTTS(nn.Module):
             )
             feat_valid = sequence_mask(mel_lengths, max_frames)
             out["durations"] = ds
+        marks.mark("variance")
         x = self.decoder(x, feat_valid)
         mel = self.to_mel(x) * feat_valid[..., None].to(x.dtype)
         out.update(

@@ -22,6 +22,7 @@ from emotivoice_tpu_torch.models.hifigan import (
     _norm_except_dim0,
 )
 from emotivoice_tpu_torch.ops.segments import get_random_segments
+from emotivoice_tpu_torch.utils import marks
 
 
 class JETSGenerator(nn.Module):
@@ -69,6 +70,7 @@ class JETSGenerator(nn.Module):
             feats_lengths=feats_lengths, pitch_targets=pitch_targets,
             energy_targets=energy_targets, dtype=dtype,
         )
+        marks.mark("decoder")
         z = out["dec_outputs"]
         out["z_start_idxs"] = None
         if mel_targets is not None and cut:

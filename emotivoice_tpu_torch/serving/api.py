@@ -71,6 +71,15 @@ class TTSService:
         self.metrics = ServiceMetrics()
         self._log = logging.getLogger("emotivoice_tpu_torch.serving")
 
+    def metrics_snapshot(self) -> Dict:
+        """What `GET /v1/metrics` returns: the service's metrics and, where
+        the engine runs bucket programs, their `programs` counters."""
+        out = self.metrics.snapshot(self._batcher, self.engine)
+        programs = self.engine.program_counts()
+        if programs is not None:
+            out["programs"] = programs
+        return out
+
     def close(self):
         """Stop the micro-batcher worker thread (idempotent)."""
         if self._batcher is not None:
@@ -263,7 +272,7 @@ def create_fastapi_app(service: TTSService):  # pragma: no cover - needs fastapi
 
     @app.get("/v1/metrics")
     def metrics():
-        return service.metrics.snapshot(service._batcher, service.engine)
+        return service.metrics_snapshot()
 
     @app.post("/v1/audio/speech")
     def speech(req: SpeechRequest):
@@ -384,9 +393,7 @@ def make_stdlib_server(service: TTSService, host: str = "0.0.0.0", port: int = 8
                 ).encode()
                 self._reply(body, "application/json")
             elif path == "/v1/metrics":
-                body = json.dumps(
-                    service.metrics.snapshot(service._batcher, service.engine)
-                ).encode()
+                body = json.dumps(service.metrics_snapshot()).encode()
                 self._reply(body, "application/json")
             else:
                 self.send_error(404)

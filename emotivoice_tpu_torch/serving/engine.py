@@ -22,11 +22,12 @@ import contextlib
 import copy
 import dataclasses
 import functools
+import itertools
 import logging
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
-from typing import Callable, List, Optional, Sequence, Tuple, Union
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -36,6 +37,7 @@ from emotivoice_tpu_torch.frontend.tokens import TokenVocab
 from emotivoice_tpu_torch.models.jets import JETSGenerator
 from emotivoice_tpu_torch.parallel.mesh import make_mesh, split_rows
 from emotivoice_tpu_torch.parallel.tensor_parallel import RankGroup, tensor_parallel
+from emotivoice_tpu_torch.serving import tracing
 from emotivoice_tpu_torch.serving.programs import BucketProgram, ProgramCache
 from emotivoice_tpu_torch.utils.device import resolve_device, resolve_dtype
 
@@ -60,6 +62,18 @@ class SynthesisRequest:
     style_embedding: np.ndarray  # (bert_embedding,)
     content_embedding: np.ndarray  # (bert_embedding,)
     alpha: float = 1.0
+    # Set by the program (`assign_request_id`) when the request reaches the
+    # batcher's queue or the engine, whichever comes first; the spans of
+    # one request share it.
+    request_id: Optional[int] = None
+
+
+_request_ids = itertools.count(1)
+
+
+def assign_request_id(request: SynthesisRequest) -> None:
+    if request.request_id is None:
+        request.request_id = next(_request_ids)
 
 
 @dataclasses.dataclass
@@ -190,6 +204,14 @@ class SynthesisEngine:
         self._pool = (ThreadPoolExecutor(len(self.replicas), thread_name_prefix="engine-replica")
                       if len(self.replicas) > 1 else None)
 
+    def program_counts(self) -> Optional[Dict[str, int]]:
+        """Builds, rebuilds and CUDA graph captures of the bucket programs
+        over the replicas; None where the engine runs none."""
+        if self.programs is None:
+            return None
+        return {name: sum(getattr(c, name) for c in self.programs)
+                for name in ("builds", "rebuilds", "captures")}
+
     def padded_rows(self, b: int) -> int:
         """Rows of the bucket `b` requests are padded to: the batch bucket,
         rounded up to a multiple of the replica count."""
@@ -249,7 +271,8 @@ class SynthesisEngine:
         with self._run_lock:
             if n == 1:
                 return self._run_replica(0, arrays, max_frames, alpha, capture)
-            futures = [self._pool.submit(self._run_replica, i, tuple(a[rows] for a in arrays),
+            replica = tracing.carried(self._run_replica)  # spans there nest under this call
+            futures = [self._pool.submit(replica, i, tuple(a[rows] for a in arrays),
                                          max_frames, alpha, capture)
                        for i, rows in enumerate(split_rows(len(tokens), n))]
             parts = [f.result() for f in futures]
@@ -259,14 +282,22 @@ class SynthesisEngine:
     def synthesize_batch(self, requests: List[SynthesisRequest]) -> List[SynthesisResult]:
         if not requests:
             return []
+        for r in requests:
+            assign_request_id(r)
+        span = tracing.begin("engine.call")
+        results: List[SynthesisResult] = []
         with self._traffic_lock:
             self._inflight += 1
         try:
-            return self._synthesize_batch(requests)
+            results = self._synthesize_batch(requests)
+            return results
         finally:
             with self._traffic_lock:
                 self._inflight -= 1
                 self._last_traffic = time.monotonic()
+            if span is not None:
+                tracing.end(span, requests=[r.request_id for r in requests],
+                            frames=sum(r.n_frames for r in results))
 
     def _synthesize_batch(self, requests: List[SynthesisRequest]) -> List[SynthesisResult]:
         cap = self.batch_buckets[-1]
@@ -284,10 +315,12 @@ class SynthesisEngine:
                 "group requests by alpha (as serving.batcher.MicroBatcher "
                 "does) or call synthesize() per request"
             )
+        span = tracing.begin("engine.prepare")
         token_ids = [self.vocab.encode(r.phonemes) for r in requests]
         t_text = _bucket(max(len(t) for t in token_ids), self.text_buckets)
         est_frames = int(t_text * self.frames_per_token * max(alpha, 1.0))
         max_frames = _bucket(est_frames, self.mel_buckets)
+        tracing.end(span)
 
         results = self._dispatch(requests, token_ids, t_text, max_frames, alpha)
 
@@ -315,6 +348,7 @@ class SynthesisEngine:
 
     def _dispatch(self, requests, token_ids, t_text: int, max_frames: int,
                   alpha: float) -> List[SynthesisResult]:
+        span = tracing.begin("engine.prepare")
         b = len(requests)
         bb = self.padded_rows(b)
         d = self.cfg.am.bert_embedding
@@ -330,13 +364,17 @@ class SynthesisEngine:
             speaker[i] = r.speaker_id
             style[i] = r.style_embedding
             content[i] = r.content_embedding
+        tracing.end(span)
         wav, n_frames = self.run(tokens, lengths, speaker, style, content,
                                  max_frames, alpha)
-        return [
+        span = tracing.begin("engine.results")
+        results = [
             SynthesisResult(wav=wav[i, : int(n_frames[i]) * self.up],
                             n_frames=int(n_frames[i]))
             for i in range(b)
         ]
+        tracing.end(span)
+        return results
 
     def synthesize(self, request: SynthesisRequest) -> SynthesisResult:
         return self.synthesize_batch([request])[0]

@@ -50,6 +50,8 @@ import torch
 from torch import nn
 
 from emotivoice_tpu_torch.ops.cuda import build
+from emotivoice_tpu_torch.serving import tracing
+from emotivoice_tpu_torch.utils import marks
 
 MAX_PROGRAMS = 128  # per replica, as the JAX engine's lru_cache(maxsize=128)
 
@@ -118,6 +120,19 @@ class BucketProgram:
         self.launches: Dict[object, int] = {}  # kernel wrapper -> launches per replay
         self.outputs: Optional[Dict[str, torch.Tensor]] = None  # the graph's static outputs
         self.capture_seconds: Optional[float] = None
+        self.cache: Optional["ProgramCache"] = None  # counts this program's capture
+        # The model's marks (utils/marks.py) record these events: inside a
+        # capture they become event-record nodes of the graph, always, so
+        # the graph is the same whether or not a profiler runs. The events
+        # around the model call are recorded only while one does. All of
+        # them on the program's card (`_record`).
+        self._card = _card(device) if device.type == "cuda" else None
+        self._events: Dict[str, torch.cuda.Event] = {}
+        if device.type == "cuda":
+            self._events = {name: torch.cuda.Event(enable_timing=True, external=True)
+                            for name in marks.MARKS}
+            self._events.update({name: torch.cuda.Event(enable_timing=True)
+                                 for name in ("start", "copied", "computed", "end")})
         self._slots = _weight_slots(model)
         self._addresses = _addresses(self._slots)
         with torch.inference_mode():
@@ -128,9 +143,25 @@ class BucketProgram:
                            torch.zeros(rows, d, **emb))
             self.alpha = torch.ones((), **emb)
 
+    def _record(self, name: str) -> None:
+        """Record the event `name` on the current stream of the program's
+        card, where its work runs: the calling thread's current card may be
+        another (an engine's replica threads), and an event records only on
+        the card it was first recorded on."""
+        self._events[name].record(torch.cuda.current_stream(self._card))
+
     def _forward(self) -> Dict[str, torch.Tensor]:
-        return self.model(*self.inputs, max_frames=self.max_frames, alpha=self.alpha,
-                          dtype=self.dtype)
+        with marks.marking(self._record if self._events else None):
+            return self.model(*self.inputs, max_frames=self.max_frames, alpha=self.alpha,
+                              dtype=self.dtype)
+
+    def _device_ms(self) -> Dict[str, float]:
+        """Device milliseconds of the call's parts (tracing.DEVICE_PARTS),
+        once the copy-out's event has completed."""
+        ev = self._events
+        order = ("start", "copied", *marks.MARKS, "computed", "end")
+        return {part: ev[a].elapsed_time(ev[b])
+                for part, a, b in zip(tracing.DEVICE_PARTS, order, order[1:])}
 
     def capture(self) -> None:
         """Capture the forward into the program's graph: on a card, once.
@@ -155,6 +186,8 @@ class BucketProgram:
             current.wait_stream(self.stream)
         self.graph, self.launches, self.outputs = graph, tally, outputs
         self.capture_seconds = time.perf_counter() - start
+        if self.cache is not None:
+            self.cache.captures += 1
 
     def stale(self) -> bool:
         """Whether a parameter or buffer of the replica moved since the build."""
@@ -171,8 +204,14 @@ class BucketProgram:
         (wav_predictions, output_lengths) numpy out. The first call is the
         eager forward on the caller's stream; on a card the second captures
         (or the first, after its forward, with `capture`), and every call
-        after the capture replays."""
+        after the capture replays. While a profiler runs, records the span
+        `program.run` (tracing), with the parts' device milliseconds on a
+        card where the call did not capture."""
+        span = tracing.begin("program.run")
+        timed = span is not None and bool(self._events)
         with torch.inference_mode():
+            if timed:
+                self._record("start")
             for buf, a in zip(self.inputs, arrays):
                 a = torch.as_tensor(a)
                 if a.shape != buf.shape:
@@ -180,6 +219,9 @@ class BucketProgram:
                                      f"buffer of {tuple(buf.shape)}")
                 buf.copy_(a)
             self.alpha.fill_(float(alpha))
+            replay = self.graph is not None
+            if timed:
+                self._record("copied")
             if self.ran:
                 self.capture()
             if self.graph is not None:
@@ -190,7 +232,17 @@ class BucketProgram:
                 self.ran = True
                 if capture:
                     self.capture()
-            return out["wav_predictions"].cpu().numpy(), out["output_lengths"].cpu().numpy()
+            if timed:
+                self._record("computed")
+            wav, n_frames = out["wav_predictions"].cpu().numpy(), out["output_lengths"].cpu().numpy()
+            if span is not None:
+                kind = "replay" if replay else "capture" if self.graph is not None else "eager"
+                if timed and kind != "capture":  # a capture's warm-up run moved the marks
+                    self._record("end")
+                    self._events["end"].synchronize()
+                    span.attrs.update(self._device_ms())
+                tracing.end(span, kind=kind)
+            return wav, n_frames
 
 
 class ProgramCache:
@@ -205,6 +257,7 @@ class ProgramCache:
         self._programs: "collections.OrderedDict[Key, BucketProgram]" = collections.OrderedDict()
         self.builds = 0  # programs built, rebuilds included
         self.rebuilds = 0  # of those, stale programs built again
+        self.captures = 0  # CUDA graphs captured by its programs
 
     def __len__(self) -> int:
         return len(self._programs)
@@ -219,6 +272,7 @@ class ProgramCache:
             self.rebuilds += 1
         if prog is None:
             prog = self._build(key)
+            prog.cache = self
             self.builds += 1
         self._programs[key] = prog
         while len(self._programs) > MAX_PROGRAMS:
