@@ -10,7 +10,9 @@ Phases (any failure exits non-zero and prints no result line):
                 instructions of each kernel instantiation in the SASS
                 (cuobjdump): fail if one, bf16 or f32, lacks HGMMA (wgmma)
                 or UTMALDG (TMA) or has an HMMA (the mma.sync cores the
-                wgmma cores replaced);
+                wgmma cores replaced); the attention kernel: TMA in both
+                dtypes, HGMMA in bf16 (f32 multiplies on the CUDA cores),
+                no HMMA;
   3. kernels  - each kernel against its plain PyTorch version on the card,
                 at the main path's shapes (bench bucket: batch 16, 384 mel
                 frames) and at a ragged T, in f32 (TF32 off) and bf16;
@@ -23,7 +25,19 @@ Phases (any failure exits non-zero and prints no result line):
                 split on the tensor cores, 3 * FLOP / 495 TFLOP/s. Phases 4 and 7
                 record every (batch, T, C) their path hands to a kernel and
                 hold both kernels against their plain versions at each of
-                those shapes too, with the model's own weights;
+                those shapes too, with the model's own weights. The
+                fused attention against its plain version in both dtypes at
+                every (batch, T) the benchmark's buckets give the encoder
+                and the decoder, with rows of length 0, 1, a partial key
+                tile and full, at 8 heads, at a TP shard's 4 and at
+                narrower heads (d_k 8, zero-padded to the kernel's 48); its
+                time beside its bound, the plain version's and PyTorch's
+                scaled_dot_product_attention's (the yardstick; the port
+                never calls it) at 16 x 8 heads x T = 1536 and 2048, on the
+                lengths of the first batch of the bulk traffic's block
+                (port_bench/traffic/bulk.json) served at T, at 5 frames a
+                token (the duration calibration of port_bench/weights.py;
+                synthetic frame counts), the same in both dtypes;
   4. main     - the full-width EmotiVoiceConfig model (random parameters
                 from a seed) behind SynthesisEngine + MicroBatcher answers
                 mixed requests after warming the bench bucket; the engine
@@ -37,12 +51,18 @@ Phases (any failure exits non-zero and prints no result line):
                 the replay against the eager forward of the same replica
                 on the same inputs (within 1e-5 / 2e-2 of max, lengths
                 equal), eager and replayed `run` in turns, the card's busy
-                share of one call, 18 + 2 launches per replay by the
-                accounting and by a torch.profiler count (both must
+                share of one call, 18 + 2 MRF launches and 4 + 4
+                attention launches (encoder and decoder layers) per replay
+                by the accounting and by a torch.profiler count (both must
                 agree), weights changed in place (seen by the next replay,
                 no rebuild) and a replaced Parameter (rebuilt), alpha 1.0
                 and 1.3 on one program, capture seconds and the graph
-                pool's bytes; xRT of the replayed and the eager call;
+                pool's bytes; xRT of the replayed and the eager call; a
+                bf16 program at the longest mel bucket (16 x 256 tokens x
+                2048 frames) replayed on inputs other than its capture's
+                against the eager forward, 4 + 4 attention launches by the
+                counters and the profiler, and the attention kernels'
+                device ms in one replay and one eager call;
   5. cpu      - the same weights at batch 1, 32 tokens on the card and on
                 the CPU (plain versions): equal durations, close waveforms;
   6. style    - the full-width SimBERT style encoder (StyleBertConfig: 12
@@ -178,6 +198,15 @@ Phases (any failure exits non-zero and prints no result line):
                 record_frontend_goldens --check;
   16. summary - a `kernels` JSON line, then the result line.
 
+Every phase that runs the acoustic model on the card counts the attention
+kernel's launches as well (AttentionWatch): 4 + 4 per acoustic forward or
+replay (per shard that a process runs, where a model group splits the
+heads), 0 in train steps (train mode keeps attention on the plain,
+differentiable path; the steps compared against the CPU run in train mode
+with dropout's p at 0), and holds the kernel against its plain version at
+every (B, T, H, d_k, dtype) the path handed it; the `kernels` line gives
+its launches per path beside the MRF kernels'.
+
 With --report, the detailed numbers are also written to PATH as JSON.
 With --profile, torch.profiler also measures the time the card is busy
 during one style-encoder forward, during a burst's embedding work and
@@ -189,6 +218,7 @@ from __future__ import annotations
 import argparse
 import http.client
 import importlib.util
+import inspect
 import io
 import json
 import os
@@ -247,6 +277,9 @@ TOL_STYLE = 1e-4  # style encoder, card vs CPU, max |pooled| difference (tanh ou
 TOL_PRETRAIN = 1e-4  # one pretraining step, card vs CPU: loss and gradient norms, relative
 V1_KS = (3, 7, 11)
 V1_DS = ((1, 3, 5),) * 3
+ATTN_BATCHES = (1, 2, 4, 8, 16)  # the engine's batch buckets the benchmark's cells reach
+ATTN_HEADS = 8  # EmotiVoiceConfig's encoder and decoder heads
+ATTN_TIMED_T = (1536, 2048)  # the bulk cells' mel buckets of 16 of every 20 calls
 
 report = {}
 
@@ -300,6 +333,7 @@ def phase_device() -> str:
 
 KERNEL_SYMBOL = re.compile(
     r"Function : \S*?(residual_unit_kernel|mrf_stage_kernel)ILi(\d+)E(13__nv_bfloat16|f)E")
+ATTENTION_SYMBOL = re.compile(r"Function : \S*?(attention_kernel)I(13__nv_bfloat16|f)E")
 SASS_OPS = ("HMMA", "HGMMA", "UTMALDG")  # mma.sync, wgmma, TMA tile loads
 
 
@@ -310,8 +344,9 @@ def parse_sass_mma(sass: str) -> dict:
     counts, key = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
-            m = KERNEL_SYMBOL.search(line)
-            key = (m.group(1), int(m.group(2)), "f32" if m.group(3) == "f" else "bf16") if m else None
+            m, a = KERNEL_SYMBOL.search(line), ATTENTION_SYMBOL.search(line)
+            key = ((m.group(1), int(m.group(2)), "f32" if m.group(3) == "f" else "bf16") if m
+                   else (a.group(1), 0, "f32" if a.group(2) == "f" else "bf16") if a else None)
             if key:
                 counts[key] = dict.fromkeys(SASS_OPS, 0)
         elif key:
@@ -324,16 +359,19 @@ def parse_sass_mma(sass: str) -> dict:
 def sass_faults(counts: dict) -> list:
     """What [build] refuses: a kernel without instantiations of a dtype; an
     instantiation, bf16 or f32, without HGMMA (wgmma) or UTMALDG (TMA), or
-    with HMMA (the mma.sync cores)."""
+    with HMMA (the mma.sync cores); the attention kernel's f32 instantiation
+    multiplies on the CUDA cores and wants no HGMMA."""
     faults = []
-    for name in ("residual_unit_kernel", "mrf_stage_kernel"):
+    for name in ("residual_unit_kernel", "mrf_stage_kernel", "attention_kernel"):
         for dname in ("bf16", "f32"):
             found = {c: n for (k, c, dn), n in counts.items() if k == name and dn == dname}
             if not found:
                 faults.append(f"{name}: no {dname} instantiation")
+            wgmma = not (name == "attention_kernel" and dname == "f32")
             for c, n in sorted(found.items()):
-                if not n["HGMMA"] or not n["UTMALDG"] or n["HMMA"]:
-                    faults.append(f"{name}<{c}, {dname}>: wants HGMMA and UTMALDG, no HMMA: {n}")
+                if (wgmma and not n["HGMMA"]) or not n["UTMALDG"] or n["HMMA"]:
+                    faults.append(f"{name}<{c}, {dname}>: wants {'HGMMA and ' * wgmma}UTMALDG, "
+                                  f"no HMMA: {n}")
     return faults
 
 
@@ -539,7 +577,125 @@ def phase_kernels(dev) -> dict:
                f"{t['ms'] - t['relayout_ms']:.2f})" if dname == "f32" else ""))
     report["kernel_rows"] = rows
     report["kernel_totals"] = {f"{k[0]}/{k[1]}": v for k, v in totals.items()}
-    return dict(totals=totals, worst=worst)
+    return dict(totals=totals, worst=worst, attention=kernels_attention(dev))
+
+
+def attention_lengths(b: int, t: int, gen) -> list:
+    """Valid keys of b rows at T = t: full, 1, 0 and a partial key tile
+    first, then seeded lengths in 1..t."""
+    partial = max(1, min(t - 1, t // 3 + 5))
+    rand = [int(x) for x in torch.randint(1, t + 1, (b,), generator=gen)]
+    return ([t, 1, 0, partial] + rand)[:b]
+
+
+BULK_TRAFFIC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "port_bench", "traffic",
+                            "bulk.json")
+FRAMES_PER_TOKEN = 5  # the duration calibration's target, port_bench/weights.py
+
+
+def bulk_lengths(t: int) -> list:
+    """Mel frames of the rows of the first batch of the bulk traffic's block
+    (port_bench/traffic.py's seed-free batches of its file) that the engine
+    serves at mel bucket t, at FRAMES_PER_TOKEN a token: the token counts
+    are the traffic's, the frame counts synthetic (a served row's durations
+    come from the seeded weights)."""
+    from emotivoice_tpu_torch.serving.engine import (DEFAULT_MEL_BUCKETS, DEFAULT_TEXT_BUCKETS,
+                                                     SynthesisEngine, _bucket)
+    from port_bench import traffic
+
+    with open(BULK_TRAFFIC) as f:
+        mix = json.load(f)
+    per = int(mix["block_batches"]) * int(mix["batch"])
+    block = traffic.lengths(mix["tokens"], per, np.random.default_rng(0)).reshape(-1, mix["batch"])
+    fpt = inspect.signature(SynthesisEngine).parameters["frames_per_token"].default
+    for row in block:
+        if _bucket(int(_bucket(int(row.max()), DEFAULT_TEXT_BUCKETS) * fpt),
+                   DEFAULT_MEL_BUCKETS) == t:
+            return [int(min(t, FRAMES_PER_TOKEN * n)) for n in row]
+    fail(f"[kernels] no batch of the bulk traffic is served at mel bucket {t}")
+
+
+def kernels_attention(dev) -> dict:
+    """The fused attention against its plain version at every (batch, T)
+    the benchmark's buckets give the encoder (text buckets) and the decoder
+    (mel buckets), in f32 (TF32 off) and bf16; then its time beside its
+    bound, the plain version's and PyTorch's scaled_dot_product_attention's
+    (a yardstick only) at 16 x 8 heads x T in ATTN_TIMED_T with the bulk
+    traffic's lengths. The bound counts the work of the valid keys alone
+    and each operand byte once; f32 multiplies on the CUDA cores."""
+    from emotivoice_tpu_torch.ops.cuda.attention import (HEAD_DIM, attention_plain,
+                                                         fused_attention)
+    from emotivoice_tpu_torch.serving.engine import DEFAULT_MEL_BUCKETS, DEFAULT_TEXT_BUCKETS
+
+    gen = torch.Generator().manual_seed(SEED + 5)
+    h, d = ATTN_HEADS, ATTN_HEADS * HEAD_DIM
+
+    def operands(b, t, dtype, lens, d=d):
+        qkv = [torch.randn(b, t, d, generator=gen).to(dev, dtype) for _ in range(3)]
+        mask = (torch.arange(t)[None, :] < torch.tensor(lens)[:, None]).to(dev)
+        return qkv, mask
+
+    # (heads, d_k): the model's, a TP shard's (its last head's 64-column
+    # box reaches past D), narrower heads (zero-padded) at one batch
+    heads = [(h, HEAD_DIM, ATTN_BATCHES), (h // 2, HEAD_DIM, ATTN_BATCHES), (2, 8, (4,))]
+    checked, worst = [], {"f32": 0.0, "bf16": 0.0}
+    for dtype, tol in ((torch.float32, TOL_F32), (torch.bfloat16, TOL_BF16)):
+        dname = "f32" if dtype == torch.float32 else "bf16"
+        for (nh, d_k, batches), b in ((x, b) for x in heads for b in x[2]):
+            for t in sorted(set(DEFAULT_TEXT_BUCKETS) | set(DEFAULT_MEL_BUCKETS)):
+                lens = attention_lengths(b, t, gen)
+                (q, k, v), mask = operands(b, t, dtype, lens, nh * d_k)
+                with torch.inference_mode():
+                    got = fused_attention(q, k, v, mask, nh)
+                    # bf16: the plain version's f32 arithmetic on the same bf16
+                    # operands (its bf16 run rounds the scores, which the
+                    # kernel keeps in f32) gates; the bf16 run is printed
+                    want = attention_plain(*(x.float() for x in (q, k, v)), mask, nh)
+                    plain = attention_plain(q, k, v, mask, nh)
+                torch.cuda.synchronize()
+                err, err_plain = _rel_err(got, want), _rel_err(plain, want)
+                zero = all(bool((got[i] == 0).all()) for i, n in enumerate(lens) if n == 0)
+                if not np.isfinite(err) or err > tol or not zero:
+                    fail(f"[kernels] fused_attention B={b} T={t} H={nh} d_k={d_k} {dname} "
+                         f"lengths {lens}: rel err {err:.3g} (tol {tol}), rows of length 0 "
+                         f"exactly 0: {zero}")
+                worst[dname] = max(worst[dname], err)
+                checked.append(dict(B=b, T=t, H=nh, d_k=d_k, dtype=dname, err=err,
+                                    err_plain_in_dtype=err_plain))
+        mine = [c for c in checked if c["dtype"] == dname]
+        log(f"[kernels] fused_attention {dname} vs plain at {len(mine)} (B, T, H, d_k): B in "
+            f"{ATTN_BATCHES} at H = {h} and {h // 2} (d_k {HEAD_DIM}), B = 4 at H = 2, d_k = 8; "
+            f"T the text and mel buckets, rows of length 0, 1, a partial key tile and full; "
+            f"worst rel err {worst[dname]:.2e} (tol {tol}); the plain version run in {dname} "
+            f"itself: {max(c['err_plain_in_dtype'] for c in mine):.2e}")
+    timed_rows, lengths = [], {t: bulk_lengths(t) for t in ATTN_TIMED_T}
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = "f32" if dtype == torch.float32 else "bf16"
+        peak = PEAK_BF16 if dtype == torch.bfloat16 else PEAK_F32_CUDA_CORES
+        for t in ATTN_TIMED_T:
+            lens = lengths[t]
+            (q, k, v), mask = operands(16, t, dtype, lens)
+            views = [x.view(16, t, h, HEAD_DIM).transpose(1, 2) for x in (q, k, v)]
+            with torch.inference_mode():
+                ms = timed(lambda: fused_attention(q, k, v, mask, h), iters=20)
+                plain_ms = timed(lambda: attention_plain(q, k, v, mask, h))
+                lib_ms = timed(lambda: torch.nn.functional.scaled_dot_product_attention(
+                    *views, attn_mask=mask[:, None, None, :]), iters=10)
+            flop = sum(4 * t * n * HEAD_DIM * h for n in lens)
+            nbytes = q.element_size() * 4 * q.numel() + mask.numel()
+            bound = 1e3 * max(flop / peak, nbytes / PEAK_BYTES)
+            row = dict(dtype=dname, B=16, T=t, heads=h, lengths=lens,
+                       mean_len=float(np.mean(lens)), ms=ms,
+                       plain_ms=plain_ms, library_ms=lib_ms, flop=flop, bytes=nbytes,
+                       bound_ms=bound, bound_share=bound / ms,
+                       bound_by="operations" if flop / peak >= nbytes / PEAK_BYTES else "bytes")
+            timed_rows.append(row)
+            log(f"[kernels] fused_attention {dname} B=16 H={h} T={t} mean length "
+                f"{row['mean_len']:.0f}: ms={ms:.4f} bound_ms={bound:.4f} ({row['bound_by']}) "
+                f"bound_share={bound / ms:.4f} plain_ms={plain_ms:.3f} library_ms={lib_ms:.4f} "
+                f"TFLOP/s={flop / ms / 1e9:.1f}")
+    report["attention"] = dict(checked=checked, timed=timed_rows)
+    return dict(worst=worst, timed=timed_rows, shapes=len(checked))
 
 
 def watch_stage_shapes(model):
@@ -623,6 +779,126 @@ def check_path_kernels(dev, model, shapes, tag: str) -> dict:
                 shapes={name: sum(r["kernel"] == name for r in rows) for name in worst_abs})
 
 
+def attention_per_call(am) -> int:
+    """fused_attention launches of one inference forward of `am` (PromptTTS)
+    on a card: one per encoder and decoder layer (4 + 4), times the shards of
+    a layer that run in this process (a one-process model group runs them
+    all, a rank of a RankGroup its own)."""
+    from emotivoice_tpu_torch.models.transformer import HeadParallelAttention
+
+    layers = am.cfg.encoder_n_layers + am.cfg.decoder_n_layers
+    split = [m for m in am.modules() if isinstance(m, HeadParallelAttention)]
+    return layers * (len(split[0].group.shards) if split else 1)
+
+
+class AttentionWatch:
+    """Sets fused_attention.launches to 0 on entry and reads it on exit
+    (`launches`). Meanwhile it counts the launches the block should make
+    (`want`): attention_per_call for each acoustic forward on a card outside
+    training that is not a capture, and for each replay of a bucket
+    program; and it records the (B, T, H, d_k, dtype) of every call `attend`
+    hands to the kernel (`shapes`), captures among them. `check` holds the
+    count and the kernel at those shapes."""
+
+    def __enter__(self):
+        from emotivoice_tpu_torch.models import transformer
+        from emotivoice_tpu_torch.models.acoustic import PromptTTS
+        from emotivoice_tpu_torch.ops.cuda import build
+        from emotivoice_tpu_torch.ops.cuda.attention import fused_attention
+        from emotivoice_tpu_torch.serving.programs import BucketProgram
+
+        self.kernel, self.want, self.shapes, self._lock = fused_attention, 0, set(), threading.Lock()
+        self._saved = [(transformer, "attend", transformer.attend),
+                       (PromptTTS, "forward", PromptTTS.forward),
+                       (BucketProgram, "replay", BucketProgram.replay)]
+        attend, am_forward, replay = (fn for _, _, fn in self._saved)
+        watch = self
+
+        def add(n):
+            with watch._lock:
+                watch.want += n
+
+        def attend_(q, k, v, valid_mask, n_heads, dropout):
+            if q.is_cuda and not dropout.training:
+                with watch._lock:
+                    watch.shapes.add((q.shape[0], q.shape[1], n_heads, q.shape[2] // n_heads,
+                                      q.dtype))
+            return attend(q, k, v, valid_mask, n_heads, dropout)
+
+        def am_forward_(am, *a, **kw):
+            if not am.training and am.src_word_emb.weight.is_cuda and not build.capturing():
+                add(attention_per_call(am))
+            return am_forward(am, *a, **kw)
+
+        def replay_(prog):
+            add(attention_per_call(prog.model.am))
+            return replay(prog)
+
+        for (owner, name, _), fn in zip(self._saved, (attend_, am_forward_, replay_)):
+            setattr(owner, name, fn)
+        fused_attention.launches = 0
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, fn in reversed(self._saved):
+            setattr(owner, name, fn)
+        self.launches = self.kernel.launches
+        return False
+
+    def check(self, dev, tag: str, at_least: int = 1) -> dict:
+        """The launches counted against `want` (which must reach `at_least`),
+        then the kernel against its plain version at every recorded shape."""
+        if self.launches != self.want or self.want < at_least:
+            fail(f"[{tag}] fused_attention launched {self.launches} times, not the {self.want} "
+                 f"its acoustic forwards and replays should (at least {at_least})")
+        return check_path_attention(dev, self.shapes, tag)
+
+
+def check_path_attention(dev, shapes, tag: str) -> dict:
+    """fused_attention against its plain version at every (B, T, H, d_k,
+    dtype) a driven path handed it, on seeded operands with rows of valid
+    length 0, 1, a partial key tile, full and seeded (`attention_lengths`);
+    the plain version's f32 arithmetic on the same operands gates, as in
+    [kernels]. Fails on a mismatch; returns the worst errors, as
+    check_path_kernels does."""
+    from emotivoice_tpu_torch.ops.cuda.attention import attention_plain, fused_attention
+
+    gen = torch.Generator().manual_seed(SEED + 6)
+    rows, worst_abs, worst_rel = [], 0.0, 0.0
+    for b, t, h, d_k, dtype in sorted(shapes, key=lambda s: (s[2], s[3], s[0], s[1], str(s[4]))):
+        tol = TOL_BF16 if dtype == torch.bfloat16 else TOL_F32
+        lens = attention_lengths(b, t, gen)
+        q, k, v = (torch.randn(b, t, h * d_k, generator=gen).to(dev, dtype) for _ in range(3))
+        mask = (torch.arange(t)[None, :] < torch.tensor(lens)[:, None]).to(dev)
+        with torch.inference_mode():
+            got = fused_attention(q, k, v, mask, h)
+            want = attention_plain(*(x.float() for x in (q, k, v)), mask, h)
+        torch.cuda.synchronize()
+        err = _rel_err(got, want)
+        zero = all(bool((got[i] == 0).all()) for i, n in enumerate(lens) if n == 0)
+        dname = "bf16" if dtype == torch.bfloat16 else "f32"
+        if not np.isfinite(err) or err > tol or not zero:
+            fail(f"[{tag}] fused_attention at the path's shape B={b} T={t} H={h} d_k={d_k} "
+                 f"{dname}: rel err {err:.3g} (tol {tol}), rows of length 0 exactly 0: {zero}")
+        worst_abs = max(worst_abs, float((got.float() - want).abs().max()))
+        worst_rel = max(worst_rel, err)
+        rows.append(dict(kernel="fused_attention", B=b, T=t, H=h, d_k=d_k, dtype=dname, err=err))
+    if rows:
+        log(f"[{tag}] fused_attention vs plain at the path's own shapes: {len(rows)} (B x T x H "
+            f"x d_k, {'/'.join(sorted({r['dtype'] for r in rows}))}) "
+            + " ".join(f"{r['B']}x{r['T']}x{r['H']}x{r['d_k']}" for r in rows)
+            + f"; worst rel err {worst_rel:.2e}")
+    report.setdefault("path_attention_checks", {})[tag] = rows
+    return dict(worst={"fused_attention": worst_abs}, worst_rel={"fused_attention": worst_rel},
+                shapes={"fused_attention": len(rows)})
+
+
+def _joined(*parts) -> dict:
+    """check_path_kernels' and check_path_attention's results as one."""
+    return {key: {name: v for p in parts for name, v in p[key].items()}
+            for key in ("worst", "worst_rel", "shapes")}
+
+
 # ---------------------------------------------------------------------------
 # 4. main path
 # ---------------------------------------------------------------------------
@@ -647,7 +923,8 @@ def profiled_kernel_counts(fn):
         return None, None
     return busy, {name: sum(calls for key, _, calls in entries if kernel in key)
                   for name, kernel in (("fused_residual_unit", "residual_unit_kernel"),
-                                       ("fused_mrf_stage", "mrf_stage_kernel"))}
+                                       ("fused_mrf_stage", "mrf_stage_kernel"),
+                                       ("fused_attention", "attention_kernel"))}
 
 
 def bench_bucket_program(dev, cfg, vocab, model, dname: str, args) -> dict:
@@ -659,6 +936,7 @@ def bench_bucket_program(dev, cfg, vocab, model, dname: str, args) -> dict:
     per replay by the accounting and by a profiler count, weights changed in
     place and a replaced Parameter (rebuild), two alphas on one program, the
     pool's bytes. The model's weights are restored before it returns."""
+    from emotivoice_tpu_torch.ops.cuda.attention import fused_attention
     from emotivoice_tpu_torch.ops.cuda.mrf_stage import fused_mrf_stage
     from emotivoice_tpu_torch.ops.cuda.resblock import fused_residual_unit
     from emotivoice_tpu_torch.serving.engine import SynthesisEngine
@@ -668,8 +946,11 @@ def bench_bucket_program(dev, cfg, vocab, model, dname: str, args) -> dict:
     cache = eng.programs[0]
     key = (BENCH_B, BENCH_T_TEXT, BENCH_FRAMES)
     tensors = [torch.as_tensor(a, device=dev) for a in args]
-    kernels = {"fused_residual_unit": fused_residual_unit, "fused_mrf_stage": fused_mrf_stage}
+    kernels = {"fused_residual_unit": fused_residual_unit, "fused_mrf_stage": fused_mrf_stage,
+               "fused_attention": fused_attention}
     want_launches = dict(zip(kernels, launches_per_call(cfg.vocoder)))
+    # one attention launch per encoder and decoder layer
+    want_launches["fused_attention"] = cfg.am.encoder_n_layers + cfg.am.decoder_n_layers
 
     def call(alpha=1.0):
         return eng.run(*args, BENCH_FRAMES, alpha)
@@ -807,6 +1088,69 @@ def bench_bucket_program(dev, cfg, vocab, model, dname: str, args) -> dict:
                 rebuilds=cache.rebuilds)
 
 
+LONG_KEY = (16, 256, 2048)  # the longest text and mel buckets, at the bulk cells' batch
+
+
+def long_bucket_replay(dev, cfg, vocab, model) -> dict:
+    """A bf16 program at LONG_KEY: captured on one set of inputs, replayed on
+    another and held against the eager forward on those (a graph node that
+    did not run would leave the capture's outputs behind), 4 + 4 attention
+    launches by the counters and by a profiler count of the replay and of an
+    eager call, with the attention kernels' device ms in each."""
+    from emotivoice_tpu_torch.ops.cuda.attention import fused_attention
+    from emotivoice_tpu_torch.serving.engine import SynthesisEngine
+
+    b, t_text, frames = LONG_KEY
+    rng = np.random.RandomState(SEED + 11)
+    d = cfg.am.bert_embedding
+
+    def inputs():
+        return (rng.randint(2, len(vocab), (b, t_text)), rng.randint(t_text // 4, t_text + 1, b),
+                rng.randint(0, cfg.am.n_speaker, b), rng.randn(b, d).astype(np.float32),
+                rng.randn(b, d).astype(np.float32))
+
+    eng = SynthesisEngine(cfg, model, vocab, device=dev, dtype="bf16")
+    first, other = inputs(), inputs()
+    eng.run(*first, frames, 1.0)
+    eng.run(*first, frames, 1.0)  # warm-up run, capture, replay
+    if eng.programs[0].get(LONG_KEY).graph is None:
+        fail(f"[main] the program at {LONG_KEY} did not capture")
+    want = attention_per_call(model.am)
+    fused_attention.launches = 0
+    wav, n = eng.run(*other, frames, 1.0)
+    counted = fused_attention.launches
+    tensors = [torch.as_tensor(a, device=dev) for a in other]
+    with torch.inference_mode():
+        out = model(*tensors, max_frames=frames, dtype=torch.bfloat16)
+    ref, ref_n = out["wav_predictions"].float().cpu().numpy(), out["output_lengths"].cpu().numpy()
+    scale = float(np.abs(ref).max())
+    err = float(np.abs(wav - ref).max()) / max(scale, 1e-30)
+
+    def attention_in(fn):
+        busy, entries = device_kernels(fn, top=10**6)
+        hits = [(ms, calls) for key, ms, calls in entries if "attention_kernel" in key]
+        return busy, sum(c for _, c in hits), sum(ms for ms, _ in hits)
+
+    busy_r, traced_r, ms_r = attention_in(lambda: eng.run(*other, frames, 1.0))
+    busy_e, traced_e, ms_e = attention_in(lambda: eng._run_eager(0, other, frames, 1.0))
+    log(f"[main] bf16 program at {b} x {t_text} tokens x {frames} frames (valid frames "
+        f"{int(ref_n.min())}-{int(ref_n.max())}), replayed on inputs other than its capture's: "
+        f"{err:.2e} of max from the eager forward (tol {TOL_GRAPH['bf16']:g}), output_lengths "
+        f"{'equal' if np.array_equal(n, ref_n) else 'DIFFER'}; attention launches {counted} "
+        f"(accounting), {traced_r} (profiler, replay; {ms_r:.3f} ms of {busy_r} ms busy), "
+        f"{traced_e} (profiler, eager call; {ms_e:.3f} ms of {busy_e} ms busy), want {want}")
+    if (not np.array_equal(n, ref_n) or not np.all(np.isfinite(wav)) or scale < 1e-3
+            or not err <= TOL_GRAPH["bf16"] or counted != want or traced_e != want):
+        fail(f"[main] the program at {LONG_KEY} disagrees with the eager forward or launched "
+             f"{counted} / {traced_e} attention kernels, not {want}")
+    del eng
+    torch.cuda.empty_cache()
+    return dict(key=LONG_KEY, err=err, launches_counted=counted, launches_traced_replay=traced_r,
+                attention_ms_replay=ms_r, busy_ms_replay=busy_r, launches_traced_eager=traced_e,
+                attention_ms_eager=ms_e, busy_ms_eager=busy_e,
+                valid_frames=[int(x) for x in ref_n])
+
+
 def phase_main(dev, cfg, vocab, model) -> dict:
     from emotivoice_tpu_torch.serving.batcher import MicroBatcher
     from emotivoice_tpu_torch.serving.engine import SynthesisEngine, SynthesisRequest
@@ -904,11 +1248,12 @@ def phase_main(dev, cfg, vocab, model) -> dict:
             f"{audio_s / dt:.1f} (eager {g['eager_ms']:.1f} ms, xRT "
             f"{audio_s * 1e3 / g['eager_ms']:.1f}); eager device ms: acoustic {am_ms:.1f}, "
             f"vocoder {voc_ms:.1f}")
+    long = long_bucket_replay(dev, cfg, vocab, model)
     report["main"] = dict(launches=launches, engine_calls=calls, builds=builds,
                           generator_calls=watch.calls, replays=watch.replays, wall_s=wall,
-                          xrt=xrt, graphs=graphs,
+                          xrt=xrt, graphs=graphs, long_bucket=long,
                           capture_s={str(k): v for k, v in capture_s.items()})
-    return dict(launches=launches, xrt=xrt, path=path, graphs=graphs)
+    return dict(launches=launches, xrt=xrt, path=path, graphs=graphs, long_bucket=long)
 
 
 # ---------------------------------------------------------------------------
@@ -1530,6 +1875,18 @@ def _train_cfg(n_vocab: int, n_speaker: int):
                                   iters_per_checkpoint=TRAIN_CKPT))
 
 
+def dropout_off(model):
+    """`model` in train mode with every dropout's p at 0: a train step
+    without randomness. Train mode keeps its attention on the plain,
+    differentiable path (`attend`); eval mode would send it to the kernel,
+    which refuses operands that require grad. Returns the model."""
+    model.train()
+    for m in model.modules():
+        if isinstance(m, torch.nn.Dropout):
+            m.p = 0.0
+    return model
+
+
 def _parse_log(path: str) -> list:
     """(prefix-less) metric dicts of train_log.txt, in order."""
     rows = []
@@ -1592,7 +1949,7 @@ def train_step_card_vs_cpu(cfg, models, batch, dtype=torch.float32) -> dict:
         model.load_state_dict(g_state)
         disc = Discriminator(cfg.disc, dtype)
         disc.load_state_dict(d_state)
-        model, disc = model.to(device).eval(), disc.to(device).eval()
+        model, disc = dropout_off(model.to(device)), disc.to(device).eval()
         step = TrainStep(cfg, model, disc, dtype=dtype)
         t0 = time.perf_counter()
         metrics = step({k: v.to(device) for k, v in rows.items()}, start_idxs=starts)
@@ -1614,6 +1971,7 @@ def phase_train(dev, profiled: bool = False) -> dict:
     from emotivoice_tpu_torch.data.dataset import BucketedLoader, PromptTTSDataset
     from emotivoice_tpu_torch.data.synthetic_corpus import main as make_corpus
     from emotivoice_tpu_torch.frontend.tokens import TokenVocab, load_label_list
+    from emotivoice_tpu_torch.ops.cuda.attention import fused_attention
     from emotivoice_tpu_torch.ops.cuda.mrf_stage import fused_mrf_stage
     from emotivoice_tpu_torch.ops.cuda.resblock import fused_residual_unit
     from emotivoice_tpu_torch.training.loop import build_models, to_device, train
@@ -1653,7 +2011,8 @@ def phase_train(dev, profiled: bool = False) -> dict:
 
         def valid_loader():
             valid_calls.append(dict(snapshot=(fused_residual_unit.launches,
-                                              fused_mrf_stage.launches), batches=0))
+                                              fused_mrf_stage.launches,
+                                              fused_attention.launches), batches=0))
             for b in BucketedLoader(valid_ds, TRAIN_B, shuffle=False, drop_last=False,
                                     pad_to_batch=True):
                 valid_calls[-1]["batches"] += 1
@@ -1676,18 +2035,19 @@ def phase_train(dev, profiled: bool = False) -> dict:
         torch.cuda.reset_peak_memory_stats(dev)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        try:
-            trainer = train(cfg, loader, out, total_steps=TRAIN_STEPS,
-                            steps_per_epoch=steps_per_epoch, valid_batch_iter_fn=valid_loader,
-                            log_every=1, device=dev, models=(model, disc))
-            torch.cuda.synchronize()
-        finally:
-            for h in hooks:
-                h.remove()
+        with AttentionWatch() as aw:
+            try:
+                trainer = train(cfg, loader, out, total_steps=TRAIN_STEPS,
+                                steps_per_epoch=steps_per_epoch, valid_batch_iter_fn=valid_loader,
+                                log_every=1, device=dev, models=(model, disc))
+                torch.cuda.synchronize()
+            finally:
+                for h in hooks:
+                    h.remove()
         train_s = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated(dev)
         launches = {"fused_residual_unit": fused_residual_unit.launches,
-                    "fused_mrf_stage": fused_mrf_stage.launches}
+                    "fused_mrf_stage": fused_mrf_stage.launches, "fused_attention": aw.launches}
         if len(valid_calls) != 1 or valid_calls[0]["batches"] != 1:
             fail(f"[train] validation ran {valid_calls}, expected one pass over one batch")
         in_steps = dict(zip(launches, valid_calls[0]["snapshot"]))
@@ -1701,9 +2061,11 @@ def phase_train(dev, profiled: bool = False) -> dict:
             f"call(s); peak memory {peak / 2**30:.2f} GiB")
         if any(in_steps.values()):
             fail(f"[train] the train steps launched kernels: {in_steps}")
-        if (in_valid["fused_residual_unit"] != 18 * gen_calls
-                or in_valid["fused_mrf_stage"] != 2 * gen_calls):
-            fail(f"[train] validation launches {in_valid} != 18/2 per generator call x {gen_calls}")
+        want_valid = [n * gen_calls for n in
+                      launches_per_call(cfg.vocoder) + (attention_per_call(model.am),)]
+        if list(in_valid.values()) != want_valid:
+            fail(f"[train] validation launches {in_valid} != {want_valid}: 18 + 2 and 4 + 4 per "
+                 f"generator call x {gen_calls}")
         rows = _parse_log(os.path.join(out, "log", "train_log.txt"))
         steps = [r for r in rows if "g_loss" in r]
         valid = [r for r in rows if "mel_l1" in r]
@@ -1727,7 +2089,7 @@ def phase_train(dev, profiled: bool = False) -> dict:
         if ckpts != want:
             fail(f"[train] checkpoints {ckpts} != {want}")
 
-        path = check_path_kernels(dev, model, shapes, "train")
+        path = _joined(check_path_kernels(dev, model, shapes, "train"), aw.check(dev, "train"))
 
         # Steady-state step time, and its split, on a fixed batch.
         batch = to_device(next(iter(loader())), dev)
@@ -1791,6 +2153,7 @@ def phase_train(dev, profiled: bool = False) -> dict:
             os.remove(os.path.join(out, "ckpt", f"{k}_{TRAIN_STEPS:08d}"))
         fused_residual_unit.launches = 0
         fused_mrf_stage.launches = 0
+        fused_attention.launches = 0
         printed = io.StringIO()
         with contextlib.redirect_stdout(printed):
             resumed = train(cfg, loader, out, total_steps=TRAIN_RESUMED_TO,
@@ -1803,7 +2166,7 @@ def phase_train(dev, profiled: bool = False) -> dict:
         if (f"resumed from step {TRAIN_CKPT}" not in said or resumed.count != TRAIN_RESUMED_TO
                 or after != list(range(TRAIN_CKPT + 1, TRAIN_RESUMED_TO + 1))):
             fail(f"[train] resume: printed {said!r}, count {resumed.count}, logged steps {after}")
-        if fused_residual_unit.launches or fused_mrf_stage.launches:
+        if fused_residual_unit.launches or fused_mrf_stage.launches or fused_attention.launches:
             fail("[train] the resumed train steps launched kernels")
 
         cmp = train_step_card_vs_cpu(cfg, (trainer.model, trainer.disc), batch)
@@ -1861,13 +2224,15 @@ def phase_train_curves(dev) -> dict:
     of the JAX package's recorded run, docs/runs/TRAINING_RUN.md) in f32 and
     in bf16 from the same seeded parameters, validation every CURVE_VALID
     steps: losses finite, the mel loss's trend, steps/s; no kernel launch in
-    the steps, 18 + 2 per validation call, both kernels held against their
-    plain versions at validation's shapes in the run's dtype."""
+    the steps, 18 + 2 MRF and 4 + 4 attention launches per validation call,
+    the three kernels held against their plain versions at validation's
+    shapes in the run's dtype."""
     import dataclasses
 
     from emotivoice_tpu_torch.data.dataset import BucketedLoader, PromptTTSDataset
     from emotivoice_tpu_torch.data.synthetic_corpus import main as make_corpus
     from emotivoice_tpu_torch.frontend.tokens import TokenVocab, load_label_list
+    from emotivoice_tpu_torch.ops.cuda.attention import fused_attention
     from emotivoice_tpu_torch.ops.cuda.mrf_stage import fused_mrf_stage
     from emotivoice_tpu_torch.ops.cuda.resblock import fused_residual_unit
     from emotivoice_tpu_torch.training.loop import build_models, train
@@ -1897,7 +2262,8 @@ def phase_train_curves(dev) -> dict:
 
             def valid_loader():
                 valid_calls.append(dict(snapshot=(fused_residual_unit.launches,
-                                                  fused_mrf_stage.launches), batches=0))
+                                                  fused_mrf_stage.launches,
+                                                  fused_attention.launches), batches=0))
                 for b in BucketedLoader(valid_ds, CURVE_B, shuffle=False, drop_last=False,
                                         pad_to_batch=True):
                     valid_calls[-1]["batches"] += 1
@@ -1915,15 +2281,17 @@ def phase_train_curves(dev) -> dict:
             fused_mrf_stage.launches = 0
             torch.cuda.reset_peak_memory_stats(dev)
             t0 = time.perf_counter()
-            try:
-                train(cfg, lambda: BucketedLoader(train_ds, CURVE_B, seed=SEED),
-                      os.path.join(tmp, dname), total_steps=CURVE_STEPS,
-                      steps_per_epoch=len(train_ds) // CURVE_B, valid_batch_iter_fn=valid_loader,
-                      log_every=1, device=dev, models=(model, disc), dtype=dtype)
-                torch.cuda.synchronize()
-            finally:
-                for h in hooks:
-                    h.remove()
+            with AttentionWatch() as aw:
+                try:
+                    train(cfg, lambda: BucketedLoader(train_ds, CURVE_B, seed=SEED),
+                          os.path.join(tmp, dname), total_steps=CURVE_STEPS,
+                          steps_per_epoch=len(train_ds) // CURVE_B,
+                          valid_batch_iter_fn=valid_loader, log_every=1, device=dev,
+                          models=(model, disc), dtype=dtype)
+                    torch.cuda.synchronize()
+                finally:
+                    for h in hooks:
+                        h.remove()
             wall = time.perf_counter() - t0
             rows = _parse_log(os.path.join(tmp, dname, "log", "train_log.txt"))
             steps = [r for r in rows if "g_loss" in r]
@@ -1933,13 +2301,13 @@ def phase_train_curves(dev) -> dict:
             for r in steps + valid:
                 if not all(np.isfinite(v) for v in r.values()):
                     fail(f"[train] {dname} curve: non-finite loss at step {r['step']}: {r}")
-            in_steps = (valid_calls[0]["snapshot"][0], valid_calls[0]["snapshot"][1])
-            total = (fused_residual_unit.launches, fused_mrf_stage.launches)
+            in_steps = valid_calls[0]["snapshot"]
+            total = (fused_residual_unit.launches, fused_mrf_stage.launches, aw.launches)
             gen_calls = sum(v["batches"] for v in valid_calls)
-            per_valid = (total[0] - in_steps[0], total[1] - in_steps[1])
-            per_call = launches_per_call(cfg.vocoder)
+            per_valid = tuple(n - m for n, m in zip(total, in_steps))
+            per_call = launches_per_call(cfg.vocoder) + (attention_per_call(model.am),)
             # the first CURVE_VALID steps ran before any validation
-            if in_steps != (0, 0) or per_valid != tuple(n * gen_calls for n in per_call):
+            if in_steps != (0, 0, 0) or per_valid != tuple(n * gen_calls for n in per_call):
                 fail(f"[train] {dname} curve: launches before validation {in_steps}, "
                      f"in validation {per_valid} over {gen_calls} generator calls")
 
@@ -1953,8 +2321,9 @@ def phase_train_curves(dev) -> dict:
             peak = torch.cuda.max_memory_allocated(dev)
             out[dname] = dict(wall_s=wall, steps_per_s=sps, curve=curve, marks=marks,
                               valid=[r["mel_l1"] for r in valid], peak_bytes=peak,
-                              launches_valid=dict(zip(("fused_residual_unit", "fused_mrf_stage"),
-                                                      per_valid)), valid_calls=gen_calls)
+                              launches_valid=dict(zip(("fused_residual_unit", "fused_mrf_stage",
+                                                       "fused_attention"), per_valid)),
+                              valid_calls=gen_calls)
             log(f"[train] {dname} curve, 48 utterances, batch {CURVE_B}, {CURVE_STEPS} steps in "
                 f"{wall:.1f} s ({sps:.2f} steps/s, log median), peak {peak / 2**30:.2f} GiB; "
                 f"mel_loss (mean of 5 steps) at steps {'/'.join(map(str, marks))}: "
@@ -1965,7 +2334,10 @@ def phase_train_curves(dev) -> dict:
                 f"launches {per_valid} over {gen_calls} generator calls")
             if {s[3] for s in shapes} != {dtype}:
                 fail(f"[train] {dname} curve: validation handed the kernels {shapes}")
-            paths[dname] = check_path_kernels(dev, model, shapes, f"train_curve_{dname}")
+            if {s[4] for s in aw.shapes} != {dtype}:
+                fail(f"[train] {dname} curve: validation handed the attention {aw.shapes}")
+            paths[dname] = _joined(check_path_kernels(dev, model, shapes, f"train_curve_{dname}"),
+                                   aw.check(dev, f"train_curve_{dname}"))
             del model, disc
             torch.cuda.empty_cache()
     finally:
@@ -1981,9 +2353,10 @@ def phase_train_curves(dev) -> dict:
 def phase_dp_serve(dev, cfg, vocab, model) -> dict:
     """A two-replica SynthesisEngine on the one card against the one-replica
     engine, at the bench bucket, in f32 and bf16: equal durations, waveforms
-    within TOL_CPU x max, each replica its own bucket program, 18 + 2
-    launches per replayed replica call, both kernels
-    held against their plain versions at every shape a replica gave them.
+    within TOL_CPU x max, each replica its own bucket program, 18 + 2 MRF
+    and 4 + 4 attention launches per replayed replica call, the three
+    kernels held against their plain versions at every shape a replica gave
+    them.
     Both replicas share one card, so this shows the engine is right on the
     device, not how it scales over cards."""
     from emotivoice_tpu_torch.ops.cuda.mrf_stage import fused_mrf_stage
@@ -1997,7 +2370,8 @@ def phase_dp_serve(dev, cfg, vocab, model) -> dict:
     args = (toks, lengths, rng.randint(0, cfg.am.n_speaker, BENCH_B),
             rng.randn(BENCH_B, d).astype(np.float32), rng.randn(BENCH_B, d).astype(np.float32))
     audio_s = BENCH_B * BENCH_FRAMES * cfg.audio.hop_length / cfg.audio.sampling_rate
-    out, shapes, launches_total = {}, set(), {"fused_residual_unit": 0, "fused_mrf_stage": 0}
+    out, shapes, attention = {}, set(), []
+    launches_total = {"fused_residual_unit": 0, "fused_mrf_stage": 0, "fused_attention": 0}
     for dname in ("f32", "bf16"):
         one = SynthesisEngine(cfg, model, vocab, device=dev, dtype=dname)
         two = SynthesisEngine(cfg, model, vocab, devices=[dev, dev], dtype=dname)
@@ -2015,27 +2389,31 @@ def phase_dp_serve(dev, cfg, vocab, model) -> dict:
             s, h = watch_stage_shapes(replica)
             recorded.append(s)
             hooks += h
-        try:
+        with AttentionWatch() as aw:
+            try:
+                two.run(*args, BENCH_FRAMES, 1.0)
+            finally:
+                for h in hooks:
+                    h.remove()
+            if [c.builds for c in two.programs] != [1] * len(two.replicas):
+                fail(f"[dp_serve] {dname}: builds per replica {[c.builds for c in two.programs]}")
             two.run(*args, BENCH_FRAMES, 1.0)
-        finally:
-            for h in hooks:
-                h.remove()
-        if [c.builds for c in two.programs] != [1] * len(two.replicas):
-            fail(f"[dp_serve] {dname}: builds per replica {[c.builds for c in two.programs]}")
-        two.run(*args, BENCH_FRAMES, 1.0)
-        key = (half, BENCH_T_TEXT, BENCH_FRAMES)
-        if not all(c.get(key).graph is not None for c in two.programs):
-            fail(f"[dp_serve] {dname}: a replica's second call did not capture its program")
-        fused_residual_unit.launches = 0
-        fused_mrf_stage.launches = 0
-        wav2, n2 = two.run(*args, BENCH_FRAMES, 1.0)
-        torch.cuda.synchronize()
-        launches = {"fused_residual_unit": fused_residual_unit.launches,
-                    "fused_mrf_stage": fused_mrf_stage.launches}
+            key = (half, BENCH_T_TEXT, BENCH_FRAMES)
+            if not all(c.get(key).graph is not None for c in two.programs):
+                fail(f"[dp_serve] {dname}: a replica's second call did not capture its program")
+            fused_residual_unit.launches = 0
+            fused_mrf_stage.launches = 0
+            before = aw.kernel.launches
+            wav2, n2 = two.run(*args, BENCH_FRAMES, 1.0)
+            torch.cuda.synchronize()
+            launches = {"fused_residual_unit": fused_residual_unit.launches,
+                        "fused_mrf_stage": fused_mrf_stage.launches,
+                        "fused_attention": aw.kernel.launches - before}
+        attention.append(aw.check(dev, f"dp_serve_{dname}"))
         calls = len(two.replicas)
         for k in launches_total:
             launches_total[k] += launches[k]
-        per_call = launches_per_call(cfg.vocoder)
+        per_call = launches_per_call(cfg.vocoder) + (attention_per_call(model.am),)
         if tuple(launches.values()) != tuple(n * calls for n in per_call):
             fail(f"[dp_serve] {dname}: launches {launches} != {per_call} per replica call x "
                  f"{calls}")
@@ -2073,7 +2451,7 @@ def phase_dp_serve(dev, cfg, vocab, model) -> dict:
             f"{calls} replica calls; "
             f"{one_ms:.1f} ms one replica (xRT {audio_s * 1e3 / one_ms:.1f}), {two_ms:.1f} ms "
             f"two on one card (xRT {audio_s * 1e3 / two_ms:.1f}; one card, so no scaling figure)")
-    path = check_path_kernels(dev, model, shapes, "dp_serve")
+    path = _joined(check_path_kernels(dev, model, shapes, "dp_serve"), _merge_paths(*attention))
     report["dp_serve"] = out
     return dict(launches=launches_total, path=path)
 
@@ -2127,8 +2505,9 @@ def phase_tp_serve(dev, cfg, vocab, model) -> dict:
     waveforms within TOL_CPU (f32) / TOL_DP_BF16 (bf16) x max on the rows
     whose durations agree and through the TP vocoder on the one-device mel,
     18 + 2 launches per generator call (the MRF kernels run on whole
-    weights gathered to the group's first device), ms per call (median of
-    3, the two engines in turns), parameter bytes per shard, both kernels
+    weights gathered to the group's first device) and 4 + 4 attention
+    launches per shard (each runs its 4 heads), ms per call (median of 3,
+    the two engines in turns), parameter bytes per shard, the three kernels
     held against their plain versions at the path's shapes."""
     import copy
 
@@ -2143,8 +2522,8 @@ def phase_tp_serve(dev, cfg, vocab, model) -> dict:
     args = (toks, lengths, rng.randint(0, cfg.am.n_speaker, BENCH_B),
             rng.randn(BENCH_B, d).astype(np.float32), rng.randn(BENCH_B, d).astype(np.float32))
     audio_s = BENCH_B * BENCH_FRAMES * cfg.audio.hop_length / cfg.audio.sampling_rate
-    out, shapes = {}, set()
-    launches_total = {"fused_residual_unit": 0, "fused_mrf_stage": 0}
+    out, shapes, attention = {}, set(), []
+    launches_total = {"fused_residual_unit": 0, "fused_mrf_stage": 0, "fused_attention": 0}
     bytes_one = shard_bytes(model)["total"]
     group = tp_group(dev)
     for dname in ("f32", "bf16"):
@@ -2157,18 +2536,20 @@ def phase_tp_serve(dev, cfg, vocab, model) -> dict:
         recorded, hooks = watch_stage_shapes(tp.model)
         fused_residual_unit.launches = 0
         fused_mrf_stage.launches = 0
-        try:
-            _, n2 = tp.run(*args, BENCH_FRAMES, 1.0)
-            torch.cuda.synchronize()
-        finally:
-            for h in hooks:
-                h.remove()
+        with AttentionWatch() as aw:
+            try:
+                _, n2 = tp.run(*args, BENCH_FRAMES, 1.0)
+                torch.cuda.synchronize()
+            finally:
+                for h in hooks:
+                    h.remove()
         launches = {"fused_residual_unit": fused_residual_unit.launches,
-                    "fused_mrf_stage": fused_mrf_stage.launches}
+                    "fused_mrf_stage": fused_mrf_stage.launches, "fused_attention": aw.launches}
+        attention.append(aw.check(dev, f"tp_serve_{dname}"))
         for k in launches_total:
             launches_total[k] += launches[k]
         shapes |= recorded
-        per_call = launches_per_call(cfg.vocoder)
+        per_call = launches_per_call(cfg.vocoder) + (attention_per_call(tp.model.am),)
         if tuple(launches.values()) != per_call:
             fail(f"[tp_serve] {dname}: launches {launches} != {per_call} per generator call")
         # The same inputs through both models, for durations per token and the
@@ -2236,7 +2617,8 @@ def phase_tp_serve(dev, cfg, vocab, model) -> dict:
         tp_model = tp.model
         del one, tp
     # the kernels against their plain versions on the split model's gathered weights
-    path = check_path_kernels(dev, tp_model, shapes, "tp_serve")
+    path = _joined(check_path_kernels(dev, tp_model, shapes, "tp_serve"),
+                   _merge_paths(*attention))
     report["tp_serve"] = out
     return dict(launches=launches_total, path=path)
 
@@ -2271,7 +2653,7 @@ def dp_one_step(cfg, batch, dev, dp) -> dict:
     from emotivoice_tpu_torch.training.step import TrainStep
 
     model, disc = build_models(cfg, dev)
-    model.eval()
+    dropout_off(model)
     disc.eval()
     trainer = TrainStep(cfg, model, disc, dp=dp)
     metrics = trainer(dp.shard_batch(batch))
@@ -2338,6 +2720,7 @@ def dp_worker(argv) -> None:
     main() and records its kernel launches, the time of its gradient
     all-reduces and its peak memory. Writes JSON to --dp-out."""
     import emotivoice_tpu_torch.parallel.data_parallel as dpm
+    from emotivoice_tpu_torch.ops.cuda.attention import fused_attention
     from emotivoice_tpu_torch.ops.cuda.mrf_stage import fused_mrf_stage
     from emotivoice_tpu_torch.ops.cuda.resblock import fused_residual_unit
     from emotivoice_tpu_torch.parallel.multihost import initialize_multihost
@@ -2383,6 +2766,7 @@ def dp_worker(argv) -> None:
         dpm.DataParallel.mean_grads = timed_mean_grads
         fused_residual_unit.launches = 0
         fused_mrf_stage.launches = 0
+        fused_attention.launches = 0
         if on_card:
             torch.cuda.reset_peak_memory_stats(dev)
         t0 = time.perf_counter()
@@ -2391,7 +2775,8 @@ def dp_worker(argv) -> None:
         out = dict(wall_s=time.perf_counter() - t0, reduce_ms=reduce_ms,
                    peak_bytes=torch.cuda.max_memory_allocated(dev) if on_card else 0,
                    launches={"fused_residual_unit": fused_residual_unit.launches,
-                             "fused_mrf_stage": fused_mrf_stage.launches})
+                             "fused_mrf_stage": fused_mrf_stage.launches,
+                             "fused_attention": fused_attention.launches})
     with open(args.dp_out, "w") as f:
         json.dump(out, f)
 
@@ -2526,6 +2911,7 @@ def phase_tp_train(dev) -> dict:
     launches), then the TP trainer's checkpoint restored into a fresh
     one-device trainer: parameters and Adam moments bit-equal."""
     from emotivoice_tpu_torch.data.synthetic_corpus import main as make_corpus
+    from emotivoice_tpu_torch.ops.cuda.attention import fused_attention
     from emotivoice_tpu_torch.ops.cuda.mrf_stage import fused_mrf_stage
     from emotivoice_tpu_torch.ops.cuda.resblock import fused_residual_unit
     from emotivoice_tpu_torch.parallel.tensor_parallel import tensor_parallel
@@ -2534,7 +2920,7 @@ def phase_tp_train(dev) -> dict:
 
     def trainer(cfg, group):
         model, disc = build_models(cfg, dev)
-        model.eval()
+        dropout_off(model)
         disc.eval()
         return TrainStep(cfg, tensor_parallel(model, group), tensor_parallel(disc, group))
 
@@ -2570,6 +2956,7 @@ def phase_tp_train(dev) -> dict:
             fail("[tp_train] the trainer's generator is not split")
         fused_residual_unit.launches = 0
         fused_mrf_stage.launches = 0
+        fused_attention.launches = 0
         got = {}
         for name, tr in (("one", one), ("tp", tp)):
             metrics, ms, _ = steps(tr, batch, 1)
@@ -2587,7 +2974,8 @@ def phase_tp_train(dev) -> dict:
             _, ms, peak = steps(tr, batch, TP_STEPS)
             timing[name] = dict(ms=ms, median_ms=float(np.median(ms)), peak_bytes=peak)
         launches = {"fused_residual_unit": fused_residual_unit.launches,
-                    "fused_mrf_stage": fused_mrf_stage.launches}
+                    "fused_mrf_stage": fused_mrf_stage.launches,
+                    "fused_attention": fused_attention.launches}
         ckpt = CheckpointManager(os.path.join(tmp, "ckpt"))
         ckpt.save(tp)
         back = trainer(cfg, [dev])
@@ -2703,14 +3091,15 @@ def tp_rank_serve(dev, group, tmp: str) -> dict:
         fused_mrf_stage.launches = 0
         group.calls.clear()
         group.bytes.clear()
-        try:
-            _, n2 = eng.run(*args, BENCH_FRAMES, 1.0)
-            torch.cuda.synchronize(dev)
-        finally:
-            for h in hooks:
-                h.remove()
+        with AttentionWatch() as aw:
+            try:
+                _, n2 = eng.run(*args, BENCH_FRAMES, 1.0)
+                torch.cuda.synchronize(dev)
+            finally:
+                for h in hooks:
+                    h.remove()
         launches = {"fused_residual_unit": fused_residual_unit.launches,
-                    "fused_mrf_stage": fused_mrf_stage.launches}
+                    "fused_mrf_stage": fused_mrf_stage.launches, "fused_attention": aw.launches}
         collectives = _rank_collectives(group)
         mel1 = torch.load(os.path.join(tmp, f"mel_{dname}.pt")).to(dev)
         with torch.inference_mode():
@@ -2733,9 +3122,11 @@ def tp_rank_serve(dev, group, tmp: str) -> dict:
                           median_ms=float(np.median(ms)), bytes_shard=sb["per_shard"],
                           bytes_whole=sb["whole"], peak_bytes=torch.cuda.max_memory_allocated(dev))
         shapes[dname] = recorded
-        # both kernels against their plain versions at this path's shapes, on
-        # the weights the rank gathered (every rank checks the same shapes)
-        paths.append(check_path_kernels(dev, eng.model, recorded, f"tp_ranks_{dname}"))
+        # the kernels against their plain versions at this path's shapes, on
+        # the weights the rank gathered (every rank checks the same shapes);
+        # the attention at the rank's own heads
+        paths.append(_joined(check_path_kernels(dev, eng.model, recorded, f"tp_ranks_{dname}"),
+                             aw.check(dev, f"tp_ranks_{dname}")))
         del eng, o2, voc
         torch.cuda.empty_cache()
     return dict(serve=out, path=_merge_paths(*paths))
@@ -2746,6 +3137,7 @@ def tp_rank_train(dev, group, mesh, tmp: str) -> dict:
     split on the rank group, dropout off, on [tp_train]'s batch: one step
     (losses, gradient norms), TP_STEPS more, a validation pass through the
     kernels, and the checkpoint both ways."""
+    from emotivoice_tpu_torch.ops.cuda.attention import fused_attention
     from emotivoice_tpu_torch.ops.cuda.mrf_stage import fused_mrf_stage
     from emotivoice_tpu_torch.ops.cuda.resblock import fused_residual_unit
     from emotivoice_tpu_torch.parallel.data_parallel import DataParallel
@@ -2760,7 +3152,7 @@ def tp_rank_train(dev, group, mesh, tmp: str) -> dict:
 
     def trainer(split: bool):
         model, disc = build_models(cfg, dev)
-        model.eval()
+        dropout_off(model)
         disc.eval()
         if split:
             model, disc = tensor_parallel(model, group), tensor_parallel(disc, group)
@@ -2769,6 +3161,7 @@ def tp_rank_train(dev, group, mesh, tmp: str) -> dict:
     tr = trainer(True)
     fused_residual_unit.launches = 0
     fused_mrf_stage.launches = 0
+    fused_attention.launches = 0
     metrics = tr(batch)
     first = dict(metrics={k: float(v) for k, v in metrics.items()},
                  grads=rank_grad_norms(tr.model, tr.disc, TRAIN_GRAD_PARAMS, group))
@@ -2788,7 +3181,8 @@ def tp_rank_train(dev, group, mesh, tmp: str) -> dict:
     step_collectives = _rank_collectives(group, TP_STEPS)
     peak = torch.cuda.max_memory_allocated(dev) - resident
     launches_steps = {"fused_residual_unit": fused_residual_unit.launches,
-                      "fused_mrf_stage": fused_mrf_stage.launches}
+                      "fused_mrf_stage": fused_mrf_stage.launches,
+                      "fused_attention": fused_attention.launches}
 
     # validation through the kernels, on the train batch's 16 whole mels
     recorded, hooks = watch_stage_shapes(tr.model)
@@ -2796,18 +3190,20 @@ def tp_rank_train(dev, group, mesh, tmp: str) -> dict:
     fused_mrf_stage.launches = 0
     group.calls.clear()
     group.bytes.clear()
-    try:
-        t0 = time.perf_counter()
-        valid = make_validate_fn(cfg, tr.model, lambda: [batch], None)(tr.count)
-        torch.cuda.synchronize(dev)
-        valid_ms = (time.perf_counter() - t0) * 1e3
-    finally:
-        for h in hooks:
-            h.remove()
+    with AttentionWatch() as aw:
+        try:
+            t0 = time.perf_counter()
+            valid = make_validate_fn(cfg, tr.model, lambda: [batch], None)(tr.count)
+            torch.cuda.synchronize(dev)
+            valid_ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            for h in hooks:
+                h.remove()
     launches_valid = {"fused_residual_unit": fused_residual_unit.launches,
-                      "fused_mrf_stage": fused_mrf_stage.launches}
+                      "fused_mrf_stage": fused_mrf_stage.launches, "fused_attention": aw.launches}
     valid_collectives = _rank_collectives(group)
-    path = check_path_kernels(dev, tr.model, recorded, "tp_ranks_valid")
+    path = _joined(check_path_kernels(dev, tr.model, recorded, "tp_ranks_valid"),
+                   aw.check(dev, "tp_ranks_valid"))
 
     # the checkpoint: gathered by both ranks, written by the first; restored
     # into a one-device trainer (each rank holds its cut of it against its
@@ -2926,11 +3322,12 @@ def phase_tp_ranks(dev, cfg, vocab, model) -> dict:
     the bench bucket through a SynthesisEngine over the rank group against
     the one-device engine, f32 (TF32 off) then bf16, at `[tp_serve]`'s
     tolerances, both ranks' waveforms equal, 18 + 2 launches per generator
-    call on each rank and both kernels held against their plain versions
-    at the shapes each rank gave them; then a TrainStep over the rank group
+    call and 4 + 4 attention launches (its 4 heads of each layer) on each
+    rank and the three kernels held against their plain versions at the
+    shapes each rank gave them; then a TrainStep over the rank group
     against one device on `[tp_train]`'s batch (losses, the 11 gradient
     norms, 0 kernel launches), TP_STEPS more steps, validation through the
-    kernels (18 + 2 per rank) and the checkpoint restored bit-equal into a
+    kernels (18 + 2 and 4 + 4 per rank) and the checkpoint restored bit-equal into a
     one-device trainer and back into the ranks. Prints ms per call and per
     step, the collectives per generator call and per step and the bytes
     they move, parameter bytes and peak memory per rank, and the backend."""
@@ -2971,7 +3368,7 @@ def phase_tp_ranks(dev, cfg, vocab, model) -> dict:
         for i in range(len(ds)):  # every feature on the card into the cache, for the ranks
             ds[i]
         m, d = build_models(tcfg, dev)
-        m.eval()
+        dropout_off(m)
         d.eval()
         tr = TrainStep(tcfg, m, d)
         metrics = tr(batch)
@@ -3001,7 +3398,8 @@ def phase_tp_ranks(dev, cfg, vocab, model) -> dict:
                 log(f"  rank {r}: {line}")
 
     mib, gib = 2 ** 20, 2 ** 30
-    per_call = launches_per_call(cfg.vocoder)
+    # a rank runs its 4 heads of each of the 8 attention layers: 8 launches
+    per_call = launches_per_call(cfg.vocoder) + (attention_per_call(model.am),)
     out = dict(backend=backend, devices=[p[0] for p in places], ranks_s=ranks_s, serve={})
     audio_s = BENCH_B * BENCH_FRAMES * cfg.audio.hop_length / cfg.audio.sampling_rate
     for dname in ("f32", "bf16"):
@@ -3053,7 +3451,8 @@ def phase_tp_ranks(dev, cfg, vocab, model) -> dict:
             + " GiB")
 
     t0 = ranks[0]["train"]
-    per_call_valid = launches_per_call(tcfg.vocoder)
+    per_call_valid = launches_per_call(tcfg.vocoder) + (
+        tcfg.am.encoder_n_layers + tcfg.am.decoder_n_layers,)
     for r, rk in enumerate(ranks):
         t = rk["train"]
         if t["first"]["metrics"] != t0["first"]["metrics"]:
@@ -3101,7 +3500,7 @@ def phase_tp_ranks(dev, cfg, vocab, model) -> dict:
     launches = {name: sum(rk["serve"][dn]["launches"][name] for rk in ranks
                           for dn in ("f32", "bf16"))
                 + sum(rk["train"]["launches_valid"][name] for rk in ranks)
-                for name in ("fused_residual_unit", "fused_mrf_stage")}
+                for name in ("fused_residual_unit", "fused_mrf_stage", "fused_attention")}
     path = _merge_paths(*(p for rk in ranks for p in (rk["path"], rk["train"]["path"])))
     return dict(launches=launches, launches_steps=t0["launches_steps"], path=path)
 
@@ -3224,11 +3623,13 @@ class PathWatch:
     """Counts the calls of every HiFi-GAN generator that runs inside the
     `with` block with its kernels on (the tools build their own models) and
     records the (B, T, C, dtype) each hands to a kernel; the launch counters
-    are set to 0 on entry and read on exit. A generator call is an eager
+    are set to 0 on entry and read on exit. The acoustic model's attention
+    is watched by an AttentionWatch inside it (`attention`). A generator call is an eager
     forward (a bucket program's first call, or the warm-up run before its
     capture, among them) or a replay of a bucket program's CUDA graph; a
     capture runs the forward but launches nothing, and is not counted, but
-    its tally of launches must be 18 + 2 (V1). A replay reads the shapes
+    its tally of launches must be 18 + 2 (V1) and attention_per_call. A
+    replay reads the shapes
     that the program's eager forwards or capture recorded, so a program
     whose forward did not run inside the block must not replay there. `durations[id(program)]` is the durations
     tensor of each program's last forward (for a captured graph, the
@@ -3237,12 +3638,13 @@ class PathWatch:
     def __enter__(self):
         from emotivoice_tpu_torch.models.hifigan import HiFiGANGenerator
         from emotivoice_tpu_torch.ops.cuda import build
+        from emotivoice_tpu_torch.ops.cuda.attention import fused_attention
         from emotivoice_tpu_torch.ops.cuda.mrf_stage import fused_mrf_stage
         from emotivoice_tpu_torch.ops.cuda.resblock import fused_residual_unit
         from emotivoice_tpu_torch.serving.programs import BucketProgram
 
         self.kernels = {"fused_residual_unit": fused_residual_unit,
-                        "fused_mrf_stage": fused_mrf_stage}
+                        "fused_mrf_stage": fused_mrf_stage, "fused_attention": fused_attention}
         self.calls, self.replays, self.captures, self.seen, self._hooks = 0, 0, 0, {}, []
         self.durations, self.errors = {}, []  # errors: found on engine threads, failed in check
         self._cls, self._forward = HiFiGANGenerator, HiFiGANGenerator.forward
@@ -3273,6 +3675,7 @@ class PathWatch:
             if captured and prog.graph is not None and gen.kernels:
                 tally = {name: prog.launches.get(k, 0) for name, k in watch.kernels.items()}
                 want = dict(zip(watch.kernels, launches_per_call(gen.cfg)))
+                want["fused_attention"] = attention_per_call(prog.model.am)
                 if tally != want:
                     watch.errors.append(f"the capture of bucket {prog.key} recorded {tally} "
                                         f"launches, not {want}")
@@ -3294,9 +3697,11 @@ class PathWatch:
         BucketProgram._forward = prog_forward
         BucketProgram.capture = capture
         BucketProgram.replay = replay
+        self.attention = AttentionWatch().__enter__()
         return self
 
     def __exit__(self, *exc):
+        self.attention.__exit__(*exc)
         self._cls.forward = self._forward
         for name, fn in self._prog.items():
             setattr(self._prog_cls, name, fn)
@@ -3306,9 +3711,10 @@ class PathWatch:
         return False
 
     def check(self, dev, tag: str) -> dict:
-        """Launches of 18 + 2 (V1) per generator call, then both kernels
-        against their plain versions at every recorded shape; before them,
-        what the capture and replay hooks found."""
+        """Launches of 18 + 2 (V1) per generator call and attention_per_call
+        per acoustic call, then the three kernels against their plain
+        versions at every recorded shape; before them, what the capture and
+        replay hooks found."""
         if self.errors:
             fail(f"[{tag}] " + "; ".join(self.errors))
         if not self.calls:
@@ -3320,8 +3726,9 @@ class PathWatch:
                 fail(f"[{tag}] generators of two vocoder configs ran")
             per = p
         want = {"fused_residual_unit": per[0] * self.calls, "fused_mrf_stage": per[1] * self.calls}
-        if self.launches != want:
-            fail(f"[{tag}] launch counters {self.launches} != {per[0]} + {per[1]} per generator "
+        mrf = {name: self.launches[name] for name in want}
+        if mrf != want:
+            fail(f"[{tag}] launch counters {mrf} != {per[0]} + {per[1]} per generator "
                  f"call x {self.calls}")
         merged = dict(worst={}, worst_rel={}, shapes={})
         for i, (gen, shapes) in enumerate(self.seen.values()):
@@ -3330,7 +3737,7 @@ class PathWatch:
                               ("shapes", lambda a, b: a + b)):
                 for name, v in r[key].items():
                     merged[key][name] = fold(merged[key].get(name, 0), v)
-        return merged
+        return _joined(merged, self.attention.check(dev, tag))
 
 
 def _add_launches(*watches) -> dict:
@@ -3747,6 +4154,34 @@ def main() -> None:
             max_rel_err_tp_ranks=tp_ranks_out["path"]["worst_rel"][name],
             max_rel_err_train_bf16=curves_out["paths"]["bf16"]["worst_rel"][name],
         ))
+    att = kern["attention"]
+    name = "fused_attention"
+    kernels.append(dict(
+        name=name, route="cuda", source="emotivoice_tpu_torch/csrc/attention.cu",
+        replaces="none (the JAX package leaves attention to XLA)",
+        launches=main_out["launches"][name],
+        launches_serve=serve_out["launches"][name],
+        launches_train_steps=train_out["launches_steps"][name],
+        launches_train_validation=train_out["launches"][name],
+        launches_dp_serve=dp_serve_out["launches"][name],
+        launches_dp_train_steps=dp_train_out["launches_steps"][name],
+        launches_tp_serve=tp_serve_out["launches"][name],
+        launches_tp_train_steps=tp_train_out["launches_steps"][name],
+        launches_tp_ranks=tp_ranks_out["launches"][name],
+        launches_tp_ranks_train_steps=tp_ranks_out["launches_steps"][name],
+        launches_train_curve_validation_f32=curves_out["launches"]["f32"][name],
+        launches_train_curve_validation_bf16=curves_out["launches"]["bf16"][name],
+        launches_corpus=corpus_out["launches"][name],
+        launches_sweep=sweep_out["launches"][name],
+        launches_verify_released_weights=tools_out["launches"][name],
+        launches_per_replay={d: g["launches_counted"][name] for d, g in main_out["graphs"].items()},
+        long_bucket=main_out["long_bucket"],
+        shapes_checked=att["shapes"], max_rel_err=att["worst"], timed=att["timed"],
+        path_shapes_checked=sum(p["shapes"][name] for p in paths),
+        max_abs_err_paths=max(p["worst"][name] for p in paths),
+        max_rel_err_paths={tag: p["worst_rel"][name] for tag, p in zip(
+            ("main", "serve", "train", "dp_serve", "tp_serve", "tp_ranks", "train_curve_f32",
+             "train_curve_bf16", "corpus", "sweep", "tools"), paths)}))
     report["kernels"] = kernels
     if args.report:
         os.makedirs(os.path.dirname(os.path.abspath(args.report)), exist_ok=True)

@@ -21,7 +21,8 @@
 //    registers and B from a shared-memory descriptor, for N = 32, 64, 128,
 //    256: m64nNk8.f32.tf32.tf32 (B K-major, the only order tf32 takes) and
 //    m64nNk16.f32.bf16.bf16 with B transposed, i.e. MN-major (N contiguous:
-//    the HIO weights as they are). Per warp w of the warpgroup, A is rows
+//    the HIO weights as they are); and m64n64k16.f32.bf16.bf16 with B
+//    K-major (the keys of attention.cu's S = Q K^T). Per warp w of the warpgroup, A is rows
 //    16w..16w+15 in mma.sync's layout, (g, t), (g+8, t), (g, t+4), (g+8,
 //    t+4) with g = lane/4, t = lane%4, where t counts 32-bit words (one tf32
 //    value, two bf16 values); D holds, for each n8 block j, columns 8j+2t,
@@ -334,6 +335,24 @@ template <> struct WgmmaBf16<256> {
           "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
           "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
           "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+
+// d += a * b on the tensor cores in bf16, 64 columns, B K-major (imm-trans-b
+// 0): one wgmma.mma_async m64n64k16.
+struct WgmmaBf16KMajor64 {
+  static __device__ __forceinline__ void run(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
   }
 };

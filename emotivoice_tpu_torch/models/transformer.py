@@ -20,7 +20,6 @@ Conventions shared by every module of the port:
 
 from __future__ import annotations
 
-import math
 from typing import Optional
 
 import numpy as np
@@ -28,13 +27,13 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from emotivoice_tpu_torch.ops.cuda import attention
 from emotivoice_tpu_torch.parallel.tensor_parallel import (
     ColumnParallel,
     RowParallel,
     as_group,
     conv1d,
 )
-from emotivoice_tpu_torch.utils.masks import NEG_INF
 
 LN_EPS = 1e-12
 
@@ -117,24 +116,15 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            valid_mask: Optional[torch.Tensor], n_heads: int, dropout: nn.Module) -> torch.Tensor:
     """Attention of (B, T, n_heads * d_k) projections, back to that layout.
 
-    Plain matmul + softmax, the same math as the JAX einsums: masked keys get
-    NEG_INF before the softmax and exactly 0 after it."""
-    b, t, d = q.shape
-    d_k = d // n_heads
-
-    def split(h):  # (B, T, D) -> (B, H, T, d_k)
-        return h.view(b, t, n_heads, d_k).transpose(1, 2)
-
-    q, k, v = split(q), split(k), split(v)
-    scores = torch.matmul(q, k.transpose(-1, -2)).float() / math.sqrt(d_k)
-    if valid_mask is not None:
-        key_mask = valid_mask[:, None, None, :]
-        scores = scores.masked_fill(~key_mask, NEG_INF)
-    attn = torch.softmax(scores, dim=-1)
-    if valid_mask is not None:
-        attn = attn.masked_fill(~key_mask, 0.0)
-    out = torch.matmul(dropout(attn).to(v.dtype), v)
-    return out.transpose(1, 2).reshape(b, t, d)
+    Training (`dropout` in train mode) and CPU tensors take the plain
+    version, the same math as the JAX einsums: masked keys get NEG_INF before
+    the softmax and exactly 0 after it. Every other call goes to the fused
+    masked-attention kernel's wrapper (`ops/cuda/attention.py`), which
+    launches it on a card and raises for what the kernel does not take: an
+    operand that requires grad, d_k above the kernel's, another device."""
+    if dropout.training or q.device.type == "cpu":
+        return attention.attention_plain(q, k, v, valid_mask, n_heads, dropout)
+    return attention.fused_attention(q, k, v, valid_mask, n_heads)
 
 
 class MultiHeadedAttention(nn.Module):

@@ -116,8 +116,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.evt_mrf_stage_bf16.argtypes = [vp, vp, ctypes.POINTER(vp), pi, pi, pi] + [i32] * 10 + [vp]
     lib.evt_mrf_stage_f32.argtypes = ([vp, vp, vp, i32, ctypes.POINTER(vp), pi, pi, pi, pi, pi]
                                       + [i32] * 10 + [vp])
+    lib.evt_attention_bf16.argtypes = [vp] * 5 + [i32] * 4 + [ctypes.c_float, vp]
+    lib.evt_attention_f32.argtypes = [vp] * 5 + [i32] * 4 + [ctypes.c_float, vp]
     for fn in (lib.evt_residual_unit_bf16, lib.evt_residual_unit_f32, lib.evt_mrf_stage_bf16,
-               lib.evt_mrf_stage_f32):
+               lib.evt_mrf_stage_f32, lib.evt_attention_bf16, lib.evt_attention_f32):
         fn.restype = i32
     lib.evt_error_string.argtypes = [i32]
     lib.evt_error_string.restype = ctypes.c_char_p

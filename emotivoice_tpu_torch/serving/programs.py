@@ -41,6 +41,8 @@ What a replay reads, and what keeps it right:
 from __future__ import annotations
 
 import collections
+import contextlib
+import gc
 import threading
 import time
 from typing import Callable, Dict, Optional, Sequence, Tuple
@@ -60,6 +62,29 @@ Key = Tuple[int, int, int]  # (rows, t_text, max_frames)
 _card_locks: Dict[torch.device, threading.Lock] = {}
 _side_streams: Dict[torch.device, torch.cuda.Stream] = {}
 _per_card_guard = threading.Lock()
+_collector_guard = threading.Lock()
+_collector_holds = [0, False]  # captures under way, whether the collector was on before the first
+
+
+@contextlib.contextmanager
+def _collector_paused():
+    """Python's cyclic garbage collector off while any thread captures. A
+    program no longer referenced (an engine deleted, a stale program
+    replaced) holds its CUDA graph until a collection frees the cycle; a
+    collection in the middle of a capture destroys that graph there, which
+    is not permitted while a stream captures and invalidates the capture."""
+    with _collector_guard:
+        if _collector_holds[0] == 0:
+            _collector_holds[1] = gc.isenabled()
+            gc.disable()
+        _collector_holds[0] += 1
+    try:
+        yield
+    finally:
+        with _collector_guard:
+            _collector_holds[0] -= 1
+            if _collector_holds[0] == 0 and _collector_holds[1]:
+                gc.enable()
 
 
 def _card(device: torch.device) -> torch.device:
@@ -179,7 +204,7 @@ class BucketProgram:
             graph = torch.cuda.CUDAGraph()
             # thread_local: other threads (the style encoder, another engine)
             # may use the card while this one captures.
-            with build.capturing_launches() as tally, torch.cuda.graph(
+            with _collector_paused(), build.capturing_launches() as tally, torch.cuda.graph(
                     graph, pool=self.pool, stream=self.stream,
                     capture_error_mode="thread_local"):
                 outputs = self._forward()

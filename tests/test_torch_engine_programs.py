@@ -306,3 +306,29 @@ def test_model_parallel_engine_stays_eager(monkeypatch):
     assert eager_calls == [tp]
     np.testing.assert_array_equal(n, want_n)
     assert_close_rel(wav, want_wav, 1e-5)
+
+
+def test_collector_paused_while_any_capture_runs():
+    """The garbage collector stays off from the first capture's start to
+    the last one's end (captures on two cards overlap), and comes back as
+    it was: a collection inside a capture would free a dead program's
+    graph there and invalidate the capture."""
+    import gc
+
+    enabled = gc.isenabled()
+    try:
+        gc.enable()
+        outer = programs._collector_paused()
+        outer.__enter__()
+        assert not gc.isenabled()
+        with programs._collector_paused():
+            assert not gc.isenabled()
+        assert not gc.isenabled()
+        outer.__exit__(None, None, None)
+        assert gc.isenabled()
+        gc.disable()
+        with programs._collector_paused():
+            assert not gc.isenabled()
+        assert not gc.isenabled()
+    finally:
+        (gc.enable if enabled else gc.disable)()

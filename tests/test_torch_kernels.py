@@ -564,6 +564,12 @@ def test_chip_smoke_counts_tensor_core_instructions_per_instantiation():
         "        /*0200*/                   HGMMA.64x32x16.F32.BF16 R24, R16, gdesc[UR4], R24 ;",
         "\t\tFunction : _ZN3evt16mrf_stage_kernelILi32EfEEv14CUtensorMap_stS1_PfNS_12StageArgsF32Eiiiiii",
         "        /*0300*/                   FFMA R4, R5, R6, R4 ;",
+        "\t\tFunction : _ZN3evt4attn16attention_kernelI13__nv_bfloat16EEv14CUtensorMap_stS3_PKT_PKhPS4_iif",
+        "        /*0100*/                   UTMALDG.3D [UR8], [UR4] ;",
+        "        /*0200*/                   HGMMA.64x64x16.F32.BF16 R24, R16, gdesc[UR4], R24 ;",
+        "\t\tFunction : _ZN3evt4attn16attention_kernelIfEEv14CUtensorMap_stS2_PKT_PKhPS3_iif",
+        "        /*0100*/                   UTMALDG.3D [UR8], [UR4] ;",
+        "        /*0300*/                   FFMA R4, R5, R6, R4 ;",
         "\t\tFunction : some_other_kernel",
         "        /*0300*/                   HMMA.16816.F32.BF16 R4, R12, R20, R4 ;",
     ])
@@ -576,6 +582,8 @@ def test_chip_smoke_counts_tensor_core_instructions_per_instantiation():
         ("mrf_stage_kernel", 64, "bf16"): {**zero, "HMMA": 1, "HGMMA": 1, "UTMALDG": 1},
         ("mrf_stage_kernel", 32, "bf16"): {**zero, "HGMMA": 1},
         ("mrf_stage_kernel", 32, "f32"): zero,
+        ("attention_kernel", 0, "bf16"): {**zero, "HGMMA": 1, "UTMALDG": 1},
+        ("attention_kernel", 0, "f32"): {**zero, "UTMALDG": 1},
     }
     faults = chip_smoke.sass_faults(counts)
     # both dtypes: an HMMA beside the HGMMAs (the mma.sync cores), no TMA, or nothing at all
@@ -588,8 +596,15 @@ def test_chip_smoke_counts_tensor_core_instructions_per_instantiation():
     good = {("residual_unit_kernel", 256, "bf16"): {**zero, "HGMMA": 2, "UTMALDG": 1},
             ("residual_unit_kernel", 256, "f32"): {**zero, "HGMMA": 2, "UTMALDG": 1},
             ("mrf_stage_kernel", 32, "bf16"): {**zero, "HGMMA": 1, "UTMALDG": 2},
-            ("mrf_stage_kernel", 32, "f32"): {**zero, "HGMMA": 1, "UTMALDG": 1}}
+            ("mrf_stage_kernel", 32, "f32"): {**zero, "HGMMA": 1, "UTMALDG": 1},
+            ("attention_kernel", 0, "bf16"): {**zero, "HGMMA": 3, "UTMALDG": 2},
+            ("attention_kernel", 0, "f32"): {**zero, "UTMALDG": 2}}
     assert chip_smoke.sass_faults(good) == []
+    # the attention kernel: bf16 on wgmma, both dtypes through TMA
+    for key, n in ((("attention_kernel", 0, "bf16"), {**zero, "UTMALDG": 2}),
+                   (("attention_kernel", 0, "f32"), zero)):
+        assert [f.split(":")[0] for f in chip_smoke.sass_faults({**good, key: n})] == [
+            f"attention_kernel<0, {key[2]}>"]
     # the bf16 mma.sync core's listing, which [build] accepted before, is refused
     old = {**good, ("mrf_stage_kernel", 32, "bf16"): {**zero, "HMMA": 4}}
     assert [f.split(":")[0] for f in chip_smoke.sass_faults(old)] == ["mrf_stage_kernel<32, bf16>"]
@@ -699,7 +714,7 @@ def test_find_nvcc_raises_when_absent(monkeypatch):
 def test_build_targets_sm90a_and_lists_every_source():
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
     names = sorted(p.rsplit("/", 1)[-1] for p in build._sources())
-    assert names == ["mrf_stage.cu", "resblock.cu"]
+    assert names == ["attention.cu", "mrf_stage.cu", "resblock.cu"]
     headers = sorted(p.rsplit("/", 1)[-1] for p in os.listdir(build.CSRC_DIR) if p.endswith(".cuh"))
     # all hashed into the stamp; the mma.sync cores (mma_conv.cuh, mma_conv_f32.cuh) are gone
     assert headers == ["conv_tile.cuh", "hopper.cuh", "wgmma_conv_bf16.cuh", "wgmma_conv_f32.cuh"]
