@@ -1,7 +1,8 @@
 """Decides `correct`: a sample of the window's finished requests, drawn from
 the seed with the longest among them, each run again through the plain
-reference (`reference/model.py`, float32, TF32 off) from the same inputs and
-weights, and compared with what the timed path returned.
+reference that the configuration names (`reference/<file>`, float32, TF32
+off) from the same inputs and weights, and compared with what the timed path
+returned.
 
 Numbers compared, each the worst over the sample:
   failed           requests due in the window that raised or never came
@@ -35,7 +36,7 @@ import torch
 
 from port_bench.probe import Kept
 from port_bench.reference import buckets
-from port_bench.reference.model import synthesize, to_durations
+from port_bench.spec import reference
 
 ORDER = ("failed", "bucket_mismatch", "dur_mismatch", "logd_err", "mel_err", "wav_err")
 
@@ -96,14 +97,15 @@ def compare(s: Served, sd, cfg, device, log_d, durations, mel, wav, n_frames,
     """The numbers of one request: what a side (the program, or the
     control) gave, against the f32 reference that follows its durations."""
     n = len(s.tokens)
+    ref_model = reference(cfg)
     hop = int(np.prod(cfg["vocoder"]["upsample_rates"]))
     total = int(np.sum(durations[:n], dtype=np.float32) * np.float32(s.alpha))
     want_bucket = _bucket(s.group_longest, total, s.alpha)
     forced = np.zeros((1, want_bucket[0]), np.float32)
     forced[0, :n] = durations[:n]
-    ref = synthesize(sd, cfg, *_inputs(s, want_bucket[0], device), want_bucket[1], s.alpha,
-                     durations=torch.as_tensor(forced, device=device))
-    rounded = to_durations(torch.as_tensor(log_d[:n])).numpy()
+    ref = ref_model.synthesize(sd, cfg, *_inputs(s, want_bucket[0], device), want_bucket[1],
+                               s.alpha, durations=torch.as_tensor(forced, device=device))
+    rounded = ref_model.to_durations(torch.as_tensor(log_d[:n])).numpy()
     ref_frames = int(ref["n_frames"][0])
     dur_bad = (not np.array_equal(rounded, durations[:n]) or np.any(durations[n:] != 0)
                or ref_frames != n_frames)
@@ -128,7 +130,8 @@ def control_numbers(s: Served, sd, cfg, device, precision: str) -> Dict[str, flo
     durations, bucket, mel and waveform."""
     t_text, m = buckets.first_bucket(s.group_longest, s.alpha)
     while True:
-        low = synthesize(sd, cfg, *_inputs(s, t_text, device), m, s.alpha, precision=precision)
+        low = reference(cfg).synthesize(sd, cfg, *_inputs(s, t_text, device), m, s.alpha,
+                                        precision=precision)
         if int(low["n_frames"][0]) < m or m >= buckets.MEL[-1]:
             break
         m = buckets.next_mel(m)

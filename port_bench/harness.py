@@ -23,7 +23,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from port_bench import check, trace, traffic, work
+from port_bench import check, trace, traffic
 from port_bench.probe import Probe
 from port_bench.reference import buckets
 from port_bench.spec import Cell, reader

@@ -7,6 +7,7 @@ from __future__ import annotations
 from typing import Optional
 
 from port_bench import trace, work
+from port_bench.spec import launches, reference
 
 
 def pad_share(view) -> Optional[float]:
@@ -27,10 +28,12 @@ def pad_share(view) -> Optional[float]:
 
 def mfu(view) -> Optional[float]:
     """The model's operations for the requests finished in the window, each
-    at its own tokens and frames, over the window and the dtype's peak."""
+    at its own tokens and frames (its reference module's `request_flops`),
+    over the window and the dtype's peak."""
     if not view.completed or view.window_s <= 0:
         return None
-    flop = sum(work.request_flops(view.cfg, tok, frames) for tok, frames in view.completed)
+    count = reference(view.cfg).request_flops
+    flop = sum(count(view.cfg, tok, frames) for tok, frames in view.completed)
     return 100.0 * flop / (view.window_s * work.peak_flops(view.dtype))
 
 
@@ -43,16 +46,17 @@ def idle_share(view) -> Optional[float]:
 
 def roofline(view, kernel: str) -> Optional[float]:
     """Bound time of the kernel's launches in the traced sub-window (each
-    generator call's shapes, `work.mrf_launches`) over the kernel's device
-    time in the trace."""
+    generator call's shapes, the `kernel_launches` of the configuration's
+    "launches" module) over the kernel's device time in the trace."""
     if view.trace is None or not view.traced_dispatches:
         return None
-    seconds = trace.kernel_seconds(view.trace, work.KERNELS[kernel])
+    mod = launches(view.cfg)
+    seconds = trace.kernel_seconds(view.trace, mod.KERNELS[kernel])
     if seconds <= 0:
         return None
     bound = sum(work.bound_seconds(f, b, view.dtype)
                 for d in view.traced_dispatches
-                for f, b in work.mrf_launches(view.cfg, d.rows, d.max_frames, view.dtype)[kernel])
+                for f, b in mod.kernel_launches(view.cfg, d.rows, d.max_frames, view.dtype)[kernel])
     return 100.0 * bound / seconds
 
 

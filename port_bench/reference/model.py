@@ -2,7 +2,7 @@
 PromptTTS acoustic model (github.com/netease-youdao/EmotiVoice,
 models/prompt_tts_modified/model_open_source.py) and the HiFi-GAN V1
 generator (jik876/hifi-gan models.py), written from the model's math for
-the benchmark's correctness check.
+the benchmark's check; its end holds what else the benchmark reads of it.
 
 It reads a state dict with the upstream checkpoint's keys (`am.*`,
 `generator.*`) and a configuration as the plain dict of the benchmark's
@@ -22,7 +22,7 @@ from __future__ import annotations
 
 import contextlib
 import math
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -297,3 +297,110 @@ def synthesize(sd, cfg, tokens, length, speaker, style, content, max_frames, alp
                        durations, pr)
         out["wav"] = vocoder(sd, cfg, out["mel"], pr)
     return out
+
+
+# ---------------------------------------------------------------------------
+# What the benchmark reads of this model through the configuration file's
+# "reference" key (port_bench/spec.py `reference`; the contract is listed in
+# port_bench/README.md): how the seeded weights are drawn and the model's
+# operations a request.
+
+DURATION_OUT = "am.duration_predictor.linear"  # its bias is the duration calibration's
+
+
+def fan_in(key: str, shape: tuple, cfg: Dict) -> int:
+    if key.startswith("generator.ups.") and key.endswith("weight_v"):
+        stride = cfg["vocoder"]["upsample_rates"][int(key.split(".")[2])]
+        return shape[0] * shape[2] // stride  # (Ci, Co, K): inputs that reach an output
+    return math.prod(shape[1:])
+
+
+def init(key: str, shape: tuple, cfg: Dict) -> Tuple[float, float]:
+    """(scale, offset) of one tensor of `param_shapes`: it is drawn as
+    offset + scale x N(0, 1). Embeddings N(0, 1), every other weight
+    N(0, 1 / fan_in), biases 0, LayerNorm scales and the positional scales
+    1; weight-norm g is left to `fixed`. The duration predictor's output
+    weight spreads log durations by about the configuration's
+    `assumed.durations.log_scale`."""
+    leaf = key.rsplit(".", 1)[1]
+    if leaf == "bias" or leaf == "weight_g":
+        s, o = 0.0, 0.0  # weight_g is set from weight_v by `fixed`
+    elif len(shape) <= 1:
+        s, o = 0.0, 1.0  # LayerNorm scale, positional alpha
+    elif key in ("am.src_word_emb.weight", "am.spk_tokenizer.weight"):
+        s, o = 1.0, 0.0
+    else:
+        s, o = 1.0 / math.sqrt(fan_in(key, shape, cfg)), 0.0
+    if key == f"{DURATION_OUT}.weight":
+        s = cfg["assumed"]["durations"]["log_scale"] / math.sqrt(shape[1])
+    return s, o
+
+
+def fixed(sd: Dict[str, torch.Tensor], cfg: Dict) -> None:
+    """Sets in place the tensors the draw leaves: weight-norm g = ||v||, the
+    upstream initialisation's fold."""
+    for k in sd:
+        if k.endswith("weight_g"):
+            v = sd[k[: -len("g")] + "v"]
+            sd[k].copy_(torch.sqrt(torch.sum(v * v, dim=tuple(range(1, v.dim())), keepdim=True)))
+
+
+# Work counters. An operation is one multiply or add of a matmul or a
+# convolution (a multiply-add counts 2), as `torch.utils.flop_counter` counts
+# them; softmax, normalisation and activations are not counted.
+
+def _encoder_flops(t: int, d: int, n_layers: int, k: int) -> int:
+    """Per layer: q, k, v, out projections 8 t d^2; scores and weighted sum
+    4 t^2 d; the conv FFN d -> 4d -> d at kernel k, 16 k t d^2."""
+    return n_layers * (8 * t * d * d + 4 * t * t * d + 16 * k * t * d * d)
+
+
+def acoustic_flops(cfg: Dict, n_tokens: int, n_frames: int) -> int:
+    a = cfg["am"]
+    t, f, d, vh = n_tokens, n_frames, a["hidden"], a["variance_n_hidden"]
+    out = _encoder_flops(t, d, a["encoder_n_layers"], a["encoder_kernel_size"])
+    out += 2 * t * (2 * d + 2 * a["bert_embedding"]) * d  # embed_projection1
+    for n_layers, k in ((a["duration_n_layers"], a["duration_kernel_size"]),
+                        (a["variance_n_layers"], a["variance_kernel_size"]),
+                        (a["energy_n_layers"], a["energy_kernel_size"])):
+        out += 2 * t * k * d * vh + (n_layers - 1) * 2 * t * k * vh * vh + 2 * t * vh
+    out += 2 * 2 * t * a["variance_embed_kernel_size"] * d  # pitch and energy embeddings
+    out += 2 * f * t * d  # Gaussian upsampling's weighted sum
+    out += _encoder_flops(f, d, a["decoder_n_layers"], a["decoder_kernel_size"])
+    out += 2 * f * d * a["n_mels"]  # to_mel
+    return out
+
+
+def stages(cfg: Dict, frames: int) -> List[Tuple[int, int]]:
+    """(channels, length) of each MRF stage for `frames` mel frames."""
+    v = cfg["vocoder"]
+    out, t = [], frames
+    for i, u in enumerate(v["upsample_rates"]):
+        t *= u
+        out.append((v["upsample_initial_channel"] // 2 ** (i + 1), t))
+    return out
+
+
+def mrf_unit_flops(c: int, t: int, k: int, rows: int = 1) -> int:
+    """One residual unit: two convs of kernel k over C -> C."""
+    return 4 * k * c * c * rows * t
+
+
+def vocoder_flops(cfg: Dict, n_frames: int) -> int:
+    v = cfg["vocoder"]
+    c0 = v["upsample_initial_channel"]
+    out = 2 * n_frames * 7 * v["initial_channel"] * c0  # conv_pre
+    t_in, c_in = n_frames, c0
+    for (c, t), k in zip(stages(cfg, n_frames), v["upsample_kernel_sizes"]):
+        out += 2 * t_in * k * c_in * c  # transposed conv: each input meets k taps
+        out += sum(mrf_unit_flops(c, t, rk) * len(rd)
+                   for rk, rd in zip(v["resblock_kernel_sizes"], v["resblock_dilation_sizes"]))
+        t_in, c_in = t, c
+    return out + 2 * t_in * 7 * c_in  # conv_post
+
+
+def request_flops(cfg: Dict, n_tokens: int, n_frames: int) -> int:
+    """The model's operations for one request at its own tokens and frames,
+    no padding."""
+    return acoustic_flops(cfg, n_tokens, n_frames) + vocoder_flops(cfg, n_frames)
+

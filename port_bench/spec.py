@@ -1,8 +1,9 @@
 """Finds what a run needs by name: the cell in `BENCHMARK.json`, its
-configuration's file, its traffic mix (`traffic/<name>.json`), its limits
-(`limits/<cell>.json`) and each per-layer metric's reader
-(`metrics/<metric>.py`, a `read(run)` function). A name with no entry or
-no file is an error, never a default.
+configuration's file, the modules of `reference/` that the file names (the
+model's reference, key "reference"; its kernels' launches, key "launches"),
+its traffic mix (`traffic/<name>.json`), its limits (`limits/<cell>.json`)
+and each per-layer metric's reader (`metrics/<metric>.py`, a `read(run)`
+function). A name with no entry or no file is an error, never a default.
 """
 
 from __future__ import annotations
@@ -11,10 +12,20 @@ import dataclasses
 import importlib.util
 import json
 import os
+import re
+from types import ModuleType
 from typing import Callable, Dict, List
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
+# what the harness reads of a module of `reference/`, by the configuration's
+# key that names it (port_bench/README.md); a reference module may also give
+# `fixed(sd, cfg)`, which sets tensors the seeded draw leaves
+CONTRACT = {
+    "reference": ("param_shapes", "init", "DURATION_OUT", "acoustic", "to_durations", "Precision",
+                  "synthesize", "request_flops"),
+    "launches": ("KERNELS", "kernel_launches"),
+}
 
 
 def _load_json(path: str) -> Dict:
@@ -51,9 +62,11 @@ def load_cell(name: str, bench_path: str = os.path.join(ROOT, "BENCHMARK.json"))
     bench = _load_json(bench_path)
     w = _named(bench["workloads"], name, "workload")
     c = _named(bench["configs"], w["config"], "config")
+    config = _load_json(os.path.join(ROOT, c["file"]))
+    for key in CONTRACT:  # a configuration that names no module fails here, before set-up
+        named_module(config, key)
     return Cell(
-        name=name, chips=int(w["chips"]),
-        config=_load_json(os.path.join(ROOT, c["file"])),
+        name=name, chips=int(w["chips"]), config=config,
         traffic_name=w["traffic"],
         traffic=_load_json(os.path.join(HERE, "traffic", w["traffic"] + ".json")),
         limits=_load_json(os.path.join(HERE, "limits", name + ".json")),
@@ -73,3 +86,36 @@ def reader(metric: str) -> Callable:
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod.read
+
+
+def named_module(cfg: Dict, key: str) -> ModuleType:
+    """The module of `reference/` that the configuration's `key` names by its
+    file name, imported as `port_bench.reference.<stem>`."""
+    if key not in cfg:
+        raise KeyError(f"configuration {cfg.get('name', '')!r} lacks the key \"{key}\": "
+                       f"the file name of a module under port_bench/reference/")
+    name = cfg[key]
+    if not isinstance(name, str) or not re.fullmatch(r"[A-Za-z_]\w*\.py", name):
+        raise ValueError(f"{key!r} {name!r} is not the name of a .py file in port_bench/reference/")
+    path = "port_bench/reference/" + name
+    module = "port_bench.reference." + name[:-3]
+    try:
+        mod = importlib.import_module(module)
+    except ModuleNotFoundError as e:
+        if e.name != module:
+            raise
+        raise FileNotFoundError(f"no module {name!r} for {key!r}: {path}") from None
+    missing = [n for n in CONTRACT[key] if not hasattr(mod, n)]
+    if missing:
+        raise AttributeError(f"module {path}, named by {key!r}, lacks {missing}")
+    return mod
+
+
+def reference(cfg: Dict) -> ModuleType:
+    """The model's reference module: weights, forward, control, operations."""
+    return named_module(cfg, "reference")
+
+
+def launches(cfg: Dict) -> ModuleType:
+    """The model's kernel launch list: `KERNELS` and `kernel_launches`."""
+    return named_module(cfg, "launches")

@@ -23,7 +23,8 @@ def pytest_configure(config):
 def as_file(cfg, dtype: str = "f32") -> dict:
     """A program configuration in the benchmark's configuration-file form."""
     d = lambda x: json.loads(json.dumps(dataclasses.asdict(x)))  # noqa: E731
-    return {"dtype": dtype, "control": "tf32" if dtype == "f32" else "fp8",
+    return {"reference": "model.py", "launches": "hifigan_launches.py", "dtype": dtype,
+            "control": "tf32" if dtype == "f32" else "fp8",
             "audio": d(cfg.audio), "am": d(cfg.am), "vocoder": d(cfg.vocoder),
             "assumed": {"durations": {"log_mean": math.log(6.0) - 0.15 ** 2 / 2,
                                       "log_scale": 0.15}}}

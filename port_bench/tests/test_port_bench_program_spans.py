@@ -173,7 +173,7 @@ def test_device_parts_of_a_call_add_up_on_the_card(card):
     from emotivoice_tpu_torch.models.jets import JETSGenerator, init_random_
     from emotivoice_tpu_torch.serving import tracing
     from emotivoice_tpu_torch.serving.programs import BucketProgram
-    from port_bench import work
+    from port_bench.reference import hifigan_launches
 
     dev = torch.device("cuda")
     cfg = EmotiVoiceConfig()
@@ -205,7 +205,7 @@ def test_device_parts_of_a_call_add_up_on_the_card(card):
     assert 0.95 * total <= parts <= total, (parts, total, run.attrs)
     mrf_ms = sum(e.time_range.elapsed_us() for e in prof.events()
                  if e.device_type == DeviceType.CUDA
-                 and any(k in e.name for k in work.KERNELS.values())) / 1e3
+                 and any(k in e.name for k in hifigan_launches.KERNELS.values())) / 1e3
     assert 0 < mrf_ms <= run.attrs["vocoder"], (mrf_ms, run.attrs)
 
 
