@@ -12,7 +12,8 @@ Phases (any failure exits non-zero and prints no result line):
                 or UTMALDG (TMA) or has an HMMA (the mma.sync cores the
                 wgmma cores replaced); the attention kernel: TMA in both
                 dtypes, HGMMA in bf16 (f32 multiplies on the CUDA cores),
-                no HMMA;
+                no HMMA; the anti-aliased SnakeBeta kernel's registers and
+                no spills in either dtype (ptxas -v);
   3. kernels  - each kernel against its plain PyTorch version on the card,
                 at the main path's shapes (bench bucket: batch 16, 384 mel
                 frames) and at a ragged T, in f32 (TF32 off) and bf16;
@@ -37,7 +38,13 @@ Phases (any failure exits non-zero and prints no result line):
                 lengths of the first batch of the bulk traffic's block
                 (port_bench/traffic/bulk.json) served at T, at 5 frames a
                 token (the duration calibration of port_bench/weights.py;
-                synthetic frame counts), the same in both dtypes;
+                synthetic frame counts), the same in both dtypes. The
+                anti-aliased SnakeBeta kernel (BigVGAN-v2) against its
+                plain chain in both dtypes at every (rows, T, C) the bulk
+                traffic's buckets give the BigVGAN path (rows 1, 2, 16;
+                mel 768-2048; C 768 ... 24, T up to 524,288) and at ragged
+                lengths; one generator call's 109 launches at 16 x 2048
+                frames timed per stage against the bytes bound;
   4. main     - the full-width EmotiVoiceConfig model (random parameters
                 from a seed) behind SynthesisEngine + MicroBatcher answers
                 mixed requests after warming the bench bucket; the engine
@@ -196,7 +203,17 @@ Phases (any failure exits non-zero and prints no result line):
                 prepare_ljspeech / prepare_databaker on small corpora at
                 22.05 / 44.1 kHz this script writes (resampled natively);
                 record_frontend_goldens --check;
-  16. summary - a `kernels` JSON line, then the result line.
+  16. bigvgan - the published BigVGAN-v2 generator (random parameters
+                from a seed) behind the full-width acoustic model, bf16,
+                through SynthesisEngine's program at 16 x 128 tokens x
+                1024 frames: 109 aa_snake launches per generator call (the
+                eager first call, the capture's tally, a replay by the
+                accounting and by a profiler count), the replay against the
+                eager forward on the capture's inputs and on others, the
+                replay's ms and its top device operations. Every phase
+                before it runs HiFi-GAN V1 and must launch the kernel 0
+                times;
+  17. summary - a `kernels` JSON line, then the result line.
 
 Every phase that runs the acoustic model on the card counts the attention
 kernel's launches as well (AttentionWatch): 4 + 4 per acoustic forward or
@@ -216,6 +233,8 @@ during one train step in each dtype (with its top kernels).
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import gc
 import http.client
 import importlib.util
 import inspect
@@ -403,6 +422,13 @@ def phase_build() -> None:
             + " ".join(f"{op} {n[op]}" for op in SASS_OPS))
     report["sass_mma"] = {f"{k[0]}/{k[1]}/{k[2]}": v for k, v in sorted(counts.items())}
     faults = sass_faults(counts)
+    if build.build_seconds:  # built here: nvcc's -Xptxas -v output is at hand
+        ptx = report["aa_snake_ptxas"] = aa_snake_ptxas(build.build_log)
+        log(f"[build] aa_snake_kernel ptxas: {ptx}")
+        for dname in ("bf16", "f32"):
+            got = ptx.get(dname, {})
+            if got.get("spill_bytes", 1) != 0 or "registers" not in got:
+                faults.append(f"aa_snake_kernel<{dname}>: no ptxas record or spills: {got}")
     if faults:
         fail("SASS check: " + "; ".join(faults))
 
@@ -577,7 +603,8 @@ def phase_kernels(dev) -> dict:
                f"{t['ms'] - t['relayout_ms']:.2f})" if dname == "f32" else ""))
     report["kernel_rows"] = rows
     report["kernel_totals"] = {f"{k[0]}/{k[1]}": v for k, v in totals.items()}
-    return dict(totals=totals, worst=worst, attention=kernels_attention(dev))
+    return dict(totals=totals, worst=worst, attention=kernels_attention(dev),
+                aa_snake=kernels_aa_snake(dev))
 
 
 def attention_lengths(b: int, t: int, gen) -> list:
@@ -4049,6 +4076,282 @@ def found_encoder() -> bool:
     return importlib.util.find_spec("pydub") is not None or shutil.which("ffmpeg") is not None
 
 
+# ---------------------------------------------------------------------------
+# BigVGAN-v2: the anti-aliased SnakeBeta kernel ([build], [kernels]) and the
+# generator behind the engine ([bigvgan])
+# ---------------------------------------------------------------------------
+
+# The published generator (nvidia/bigvgan_v2_22khz_80band_fmax8k_256x
+# config.json), as port_bench/configs/bigvgan-v2-bf16.json has it
+BIGVGAN_V2 = dict(activation="snakebeta", initial_channel=80, upsample_initial_channel=1536,
+                  upsample_rates=(4, 4, 2, 2, 2, 2), upsample_kernel_sizes=(8, 8, 4, 4, 4, 4),
+                  use_tanh_at_final=False, use_bias_at_final=False)
+AA_STAGES = ((768, 4), (384, 16), (192, 32), (96, 64), (48, 128), (24, 256))  # (C, samples a frame)
+AA_ROWS = (1, 2, 16)  # the bulk cells' batch rows: 16, and 1 and 2 served again a bucket up
+AA_MEL = (768, 1024, 1536, 2048)  # the mel buckets the bulk traffic reaches
+AA_RAGGED = ((1, 1, 768), (2, 5, 24), (3, 4097, 48), (2, 4098, 24), (1, 8194, 24),
+             (2, 4099, 7), (1, 8191, 96))  # (B, T, C); the last one (B, T, C) in memory
+AA_ACTS = 109  # activations a generator call: 6 stages x 3 AMP blocks x 6, and the last
+# max |kernel - plain| / max |plain|: f32 sums in another order and the sine on the
+# SFU after a reduction by pi (~4e-7 abs); bf16 one rounding of the output
+TOL_AA = {"f32": 2e-5, "bf16": 8e-3}
+BIGVGAN_KEY = (16, 128, 1024)  # (rows, text, mel) of the [bigvgan] phase's program
+# the f32 generator against the plain reference, ||wav - ref|| / ||ref||: f32 roundings
+# in another order (cuDNN, the kernel's sine: ~1e-6 of max an activation) grow through
+# 109 activations whose sin^2(alpha u) / beta turns a phase error into an amplitude one
+# (1.1e-4 on an H100); a fault of the model's structure reads O(1)
+TOL_BIGVGAN_F32 = 1e-3
+
+
+def aa_snake_ptxas(build_log: str) -> dict:
+    """Registers and spill bytes of each aa_snake_kernel instantiation in
+    nvcc's -Xptxas -v output, by dtype."""
+    out, cur = {}, None
+    for line in build_log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = (("bf16" if "bfloat16" in m.group(1) else "f32")
+                   if "aa_snake_kernel" in m.group(1) else None)
+            if cur:
+                out[cur] = {}
+            continue
+        if cur:
+            r = re.search(r"Used (\d+) registers", line)
+            if r:
+                out[cur]["registers"] = int(r.group(1))
+            sp = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if sp:
+                out[cur]["spill_bytes"] = int(sp.group(1)) + int(sp.group(2))
+    return out
+
+
+def aa_snake_operands(gen, b: int, t: int, c: int, dtype, dev, time_major: bool = True):
+    """x (B, T, C) ~ 8 N(0, 1), laid out (B, C, T) as the generator's
+    activations (or (B, T, C)), and per-channel log alpha, log beta ~
+    N(0, 0.5^2); the filter's taps."""
+    from emotivoice_tpu_torch.ops.cuda.aa_snake import kaiser_sinc_filter1d
+
+    shape = (b, c, t) if time_major else (b, t, c)
+    x = (8.0 * torch.randn(*shape, generator=gen, device=dev)).to(dtype)
+    x = x.transpose(1, 2) if time_major else x
+    al, bl = (0.5 * torch.randn(c, generator=gen, device=dev) for _ in range(2))
+    return x, al, bl, kaiser_sinc_filter1d().to(dev)
+
+
+def kernels_aa_snake(dev) -> dict:
+    """fused_aa_snake against its plain chain (f32 from the same input) at
+    every (rows, T, C) the bulk traffic's buckets give the BigVGAN path
+    (AA_ROWS x AA_MEL x the 6 stages) and at ragged lengths, both dtypes;
+    then one generator call's 109 launches at 16 x 2048 frames timed per
+    stage: ms, bound ms (bytes at 3.35 TB/s), share, the plain chain's ms."""
+    from emotivoice_tpu_torch.ops.cuda.aa_snake import aa_snake_plain, fused_aa_snake
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    worst = {"f32": 0.0, "bf16": 0.0}
+    shapes = [(b, m * per, c) for b in AA_ROWS for m in AA_MEL for c, per in AA_STAGES]
+    n = 0
+    with torch.inference_mode():
+        for b, t, c in shapes + list(AA_RAGGED):
+            for dname, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+                x, al, bl, taps = aa_snake_operands(gen, b, t, c, dtype, dev,
+                                                    time_major=(b, t, c) != AA_RAGGED[-1])
+                y = fused_aa_snake(x, al, bl, taps, taps)
+                want = aa_snake_plain(x.float(), al, bl, taps, taps)
+                err = _rel_err(y, want)
+                worst[dname] = max(worst[dname], err)
+                n += 1
+                if not (y.shape == x.shape and y.dtype == x.dtype and err <= TOL_AA[dname]):
+                    fail(f"[kernels] aa_snake {dname} B={b} T={t} C={c}: rel_err {err:.2e} "
+                         f"(tol {TOL_AA[dname]:g}), shape {tuple(y.shape)} {y.dtype}")
+                del x, y, want
+        log(f"[kernels] aa_snake against its plain chain at {n} (shape, dtype) pairs (rows "
+            f"{AA_ROWS} x mel {AA_MEL} x C {[c for c, _ in AA_STAGES]}, T up to "
+            f"{max(t for _, t, _ in shapes)}, and ragged {AA_RAGGED}): worst rel_err f32 "
+            f"{worst['f32']:.2e}, bf16 {worst['bf16']:.2e}")
+        timed_out = {}
+        b, frames = 16, 2048
+        for dname, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+            item = torch.tensor([], dtype=dtype).element_size()
+            tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, launches=0)
+            for i, (c, per) in enumerate(AA_STAGES):
+                x, al, bl, taps = aa_snake_operands(gen, b, frames * per, c, dtype, dev)
+                count = 18 + (i == len(AA_STAGES) - 1)
+                ms = timed(lambda: fused_aa_snake(x, al, bl, taps, taps), iters=5)
+                plain_ms = timed(lambda: aa_snake_plain(x, al, bl, taps, taps), iters=2)
+                bound = (2 * item * x.numel() + 4 * (2 * c + 24)) / PEAK_BYTES * 1e3
+                log(f"[kernels] aa_snake {dname} B={b} T={frames * per} C={c}: ms={ms:.4f} "
+                    f"bound_ms={bound:.4f} (bytes) bound_share={bound / ms:.3f} "
+                    f"plain_ms={plain_ms:.3f} x{count}")
+                tot["ms"] += count * ms
+                tot["plain_ms"] += count * plain_ms
+                tot["bound_ms"] += count * bound
+                tot["launches"] += count
+                del x
+            log(f"[kernels] aa_snake per generator call at 16 x 2048 frames, {dname}: "
+                f"{tot['launches']} launches ms={tot['ms']:.2f} bound_ms={tot['bound_ms']:.2f} "
+                f"bound_share={tot['bound_ms'] / tot['ms']:.3f} plain_ms={tot['plain_ms']:.2f}")
+            timed_out[dname] = tot
+    torch.cuda.empty_cache()
+    report["aa_snake"] = dict(worst=worst, checked=n, timed=timed_out)
+    return dict(worst=worst, checked=n, timed=timed_out)
+
+
+def _bigvgan_model(vocab):
+    """The full-width acoustic model and the published BigVGAN-v2 generator,
+    random parameters from SEED (`init_random_`), log alpha and beta ~
+    N(0, 0.5^2) per channel, the AMP blocks' conv weights scaled by 0.5 and
+    conv_post's by 0.2, as the benchmark draws them (`assumed.vocoder_init`
+    of port_bench/configs/bigvgan-v2-bf16.json): the signal keeps near unit
+    rms through the stages and the waveform inside the clamp."""
+    from emotivoice_tpu_torch.config import AudioConfig, EmotiVoiceConfig, VocoderConfig
+    from emotivoice_tpu_torch.models.bigvgan import AMPBlock1, SnakeBeta
+    from emotivoice_tpu_torch.models.jets import JETSGenerator, init_random_
+
+    cfg = EmotiVoiceConfig(audio=AudioConfig(sampling_rate=22050),
+                           vocoder=VocoderConfig(**BIGVGAN_V2))
+    cfg = cfg.replace(am=cfg.am.__class__(**{**cfg.am.__dict__, "n_vocab": len(vocab)}))
+    model = init_random_(JETSGenerator(cfg), SEED)
+    gen = torch.Generator().manual_seed(SEED + 1)
+    with torch.no_grad():
+        for m in model.generator.modules():
+            if isinstance(m, SnakeBeta):
+                m.alpha.copy_(0.5 * torch.randn(m.alpha.shape, generator=gen))
+                m.beta.copy_(0.5 * torch.randn(m.beta.shape, generator=gen))
+            elif isinstance(m, AMPBlock1):
+                for conv in (*m.convs1, *m.convs2):
+                    conv.weight_g.mul_(0.5)
+        model.generator.conv_post.weight_g.mul_(0.2)
+    return cfg, model
+
+
+def generator_against_reference(dev, cfg, model) -> dict:
+    """The served generator alone (its kernels and cuDNN) in f32 and in bf16
+    against the benchmark's plain reference (`port_bench/reference/
+    bigvgan_v2.py`, f32, TF32 off) on one seeded mel of 2 x 256 frames:
+    ||wav - reference's|| / ||reference's||, as the check's `wav_err`. f32
+    holds the implementation (TOL_BIGVGAN_F32); bf16 is the dtype's own
+    error, printed."""
+    from port_bench.reference import bigvgan_v2
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    mel = torch.randn(2, 256, cfg.vocoder.initial_channel, generator=gen, device=dev)
+    sd = {f"generator.{k}": v for k, v in model.generator.state_dict().items()}
+    vcfg = {"vocoder": dataclasses.asdict(cfg.vocoder)}
+    out = {}
+    with torch.inference_mode(), bigvgan_v2.Precision().flags():
+        want = bigvgan_v2.vocoder(sd, vcfg, mel).float()
+        for dname, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            got = model.generator(mel, dtype=dtype).float()
+            norm = torch.linalg.vector_norm
+            out[dname] = float(norm(got - want) / norm(want))
+    log(f"[bigvgan] the generator against the plain reference on 2 x 256 frames: wav rel. "
+        f"error f32 {out['f32']:.2e} (tol {TOL_BIGVGAN_F32:g}), bf16 {out['bf16']:.3f}")
+    if not out["f32"] <= TOL_BIGVGAN_F32:
+        fail("[bigvgan] the f32 generator disagrees with the plain reference")
+    return out
+
+
+def phase_bigvgan(dev) -> dict:
+    """The published BigVGAN-v2 behind the full-width acoustic model, bf16,
+    through SynthesisEngine's bucket program at BIGVGAN_KEY: the first call
+    (eager) and the second (warm-up run, capture, replay), 109 aa_snake
+    launches per generator call (the eager call, the capture's tally, a
+    replay by the accounting and by a profiler count), the replay against
+    the eager forward on the capture's inputs and on others, the replay's
+    ms and its top device operations."""
+    from emotivoice_tpu_torch.frontend.tokens import TokenVocab
+    from emotivoice_tpu_torch.ops.cuda.aa_snake import fused_aa_snake
+    from emotivoice_tpu_torch.serving.engine import SynthesisEngine
+
+    vocab = TokenVocab.default()
+    cfg, model = _bigvgan_model(vocab)
+    model = model.to(dev).eval()
+    eng = SynthesisEngine(cfg, model, vocab, device=dev, dtype="bf16")
+    cache = eng.programs[0]
+    b, t_text, frames = BIGVGAN_KEY
+    rng = np.random.default_rng(SEED)
+
+    def inputs():
+        lengths = rng.integers(t_text // 3, t_text + 1, b)
+        tokens = np.zeros((b, t_text), np.int64)
+        for i, n in enumerate(lengths):
+            tokens[i, :n] = rng.integers(1, len(vocab), n)
+        style, content = (rng.standard_normal((b, cfg.am.bert_embedding)).astype(np.float32)
+                          for _ in range(2))
+        return tokens, lengths, rng.integers(0, cfg.am.n_speaker, b), style, content
+
+    def eager(args):
+        with torch.inference_mode():
+            out = model(*(torch.as_tensor(a, device=dev) for a in args), max_frames=frames,
+                        dtype=eng.dtype)
+        return out["wav_predictions"].float().cpu().numpy(), out["output_lengths"].cpu().numpy()
+
+    def against_eager(what, args, launched=None):
+        fused_aa_snake.launches = 0
+        wav, n = eng.run(*args, frames, 1.0)
+        if launched is not None and fused_aa_snake.launches != launched:
+            fail(f"[bigvgan] {what}: {fused_aa_snake.launches} aa_snake launches, not {launched}")
+        want, want_n = eager(args)
+        scale = float(np.abs(want).max())
+        err = float(np.abs(wav - want).max()) / max(scale, 1e-30)
+        log(f"[bigvgan] {what}: vs the eager forward {err:.2e} of max (tol "
+            f"{TOL_GRAPH['bf16']:g}), output_lengths "
+            f"{'equal' if np.array_equal(n, want_n) else 'DIFFER'}, max |wav| {scale:.3f}, "
+            f"clamped {float(np.mean(np.abs(wav) >= 1.0)):.2e}")
+        if (not np.array_equal(n, want_n) or not np.all(np.isfinite(wav)) or scale < 1e-3
+                or not err <= TOL_GRAPH["bf16"]):
+            fail(f"[bigvgan] {what}: the program disagrees with the eager forward")
+        return err
+
+    a1, a2 = inputs(), inputs()
+    t0 = time.perf_counter()
+    against_eager("first call (the eager forward)", a1, launched=AA_ACTS)
+    first_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    err = against_eager("second call (warm-up run, capture, replay)", a1)
+    second_s = time.perf_counter() - t0
+    prog = cache.get(BIGVGAN_KEY)
+    tally = prog.launches.get(fused_aa_snake, 0)
+    if prog.graph is None or tally != AA_ACTS:
+        fail(f"[bigvgan] the capture recorded {tally} aa_snake launches, not {AA_ACTS}")
+    err_other = against_eager("replay on other inputs", a2, launched=AA_ACTS)
+
+    def replay():
+        eng.run(*a2, frames, 1.0)
+
+    busy, top = device_kernels(replay, top=10 ** 6)
+    traced = sum(calls for key, _, calls in top if "aa_snake_kernel" in key) if top else None
+    if busy is not None and traced != AA_ACTS:
+        fail(f"[bigvgan] the profiler saw {traced} aa_snake_kernel launches in one replay")
+    aa_ms = sum(ms for key, ms, _ in top if "aa_snake_kernel" in key) if top else None
+    runs = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        replay()
+        torch.cuda.synchronize()
+        runs.append((time.perf_counter() - start) * 1e3)
+    replay_ms = float(np.median(runs))
+    log(f"[bigvgan] {BIGVGAN_KEY} bf16: first call {first_s:.2f} s, second (warm-up run + "
+        f"capture {prog.capture_seconds:.2f} s, replay) {second_s:.2f} s; replay {replay_ms:.2f} "
+        f"ms (median of 5); launches per replay {AA_ACTS} (accounting)"
+        + (f", {traced} (profiler); card busy {busy:.2f} ms, aa_snake_kernel {aa_ms:.2f} ms "
+           f"({aa_ms / busy:.1%})" if busy else "; profiler: no device time"))
+    for key, ms, calls in (top or [])[:12]:
+        log(f"[bigvgan]   {ms:8.3f} ms {calls:4d}x {key}")
+    ref_err = generator_against_reference(dev, cfg, model)
+    out = dict(first_call_s=first_s, second_call_s=second_s, capture_s=prog.capture_seconds,
+               err_replay=err, err_other=err_other, reference=ref_err, replay_ms=replay_ms,
+               busy_ms=busy,
+               aa_snake_ms=aa_ms, launches_per_replay=AA_ACTS, launches_traced=traced,
+               top=[list(e) for e in (top or [])[:12]])
+    report["bigvgan"] = out
+    del eng, cache, prog, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> None:
     p = argparse.ArgumentParser()
     p.add_argument("--report", default=None, help="write the detailed numbers here (JSON)")
@@ -4073,7 +4376,9 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     run(phase_build)
+    from emotivoice_tpu_torch.ops.cuda.aa_snake import fused_aa_snake
     kern = run(phase_kernels, dev)
+    fused_aa_snake.launches = 0  # every path below runs HiFi-GAN V1 and launches none
     cfg, vocab, model = _build_model()
     main_out = run(phase_main, dev, cfg, vocab, model)
     cpu_model = run(phase_cpu, dev, cfg, model)
@@ -4091,6 +4396,9 @@ def main() -> None:
     corpus_out = run(phase_corpus, dev)
     sweep_out = run(phase_sweep, dev)
     tools_out = run(phase_tools, dev, train_out, embedder)
+    if fused_aa_snake.launches:
+        fail(f"the HiFi-GAN V1 paths launched aa_snake_kernel {fused_aa_snake.launches} times")
+    bigvgan_out = run(phase_bigvgan, dev)
     log("[time] seconds per phase: " + ", ".join(f"{k[6:]} {v:.1f}" for k, v in seconds.items())
         + f"; total {sum(seconds.values()):.1f}")
 
@@ -4182,6 +4490,14 @@ def main() -> None:
         max_rel_err_paths={tag: p["worst_rel"][name] for tag, p in zip(
             ("main", "serve", "train", "dp_serve", "tp_serve", "tp_ranks", "train_curve_f32",
              "train_curve_bf16", "corpus", "sweep", "tools"), paths)}))
+    aa = kern["aa_snake"]
+    kernels.append(dict(
+        name="fused_aa_snake", route="cuda", source="emotivoice_tpu_torch/csrc/aa_snake.cu",
+        replaces="none (the JAX package has no BigVGAN)",
+        launches_hifigan_paths=0, launches_per_replay=bigvgan_out["launches_per_replay"],
+        launches_traced_replay=bigvgan_out["launches_traced"],
+        shapes_checked=aa["checked"], max_rel_err=aa["worst"], timed=aa["timed"],
+        bigvgan_replay_ms=bigvgan_out["replay_ms"], ptxas=report.get("aa_snake_ptxas")))
     report["kernels"] = kernels
     if args.report:
         os.makedirs(os.path.dirname(os.path.abspath(args.report)), exist_ok=True)

@@ -3,7 +3,8 @@
 The port keeps its own copy of the JAX package's `emotivoice_tpu/config.py`
 so that it imports nothing of that package; the two trees stay field for
 field identical, so a config built for one describes the same model in the
-other.
+other, except for `VocoderConfig`'s BigVGAN keys (`activation` and the three
+after it), which the JAX package lacks and whose defaults describe HiFi-GAN.
 
 One dataclass tree replaces the reference's three config mechanisms (generated
 `Config` classes, yacs YAML, argparse) — see reference
@@ -91,7 +92,12 @@ class AcousticConfig:
 
 @dataclasses.dataclass(frozen=True)
 class VocoderConfig:
-    """HiFi-GAN generator (reference models/hifigan/models.py:90-140)."""
+    """HiFi-GAN generator (reference models/hifigan/models.py:90-140), or
+    with `activation="snakebeta"` BigVGAN-v2's (github.com/NVIDIA/BigVGAN
+    bigvgan.py; `models/bigvgan.py`): the same upsampling and MRF layout
+    with anti-aliased SnakeBeta activations and AMPBlock1 residual blocks.
+    The last four keys are BigVGAN's config.json keys; their defaults keep
+    HiFi-GAN's generator as it is."""
 
     resblock: str = "1"
     initial_channel: int = 80
@@ -105,6 +111,10 @@ class VocoderConfig:
         (1, 3, 5),
     )
     lrelu_slope: float = 0.1
+    activation: str = "lrelu"  # "lrelu" (HiFi-GAN) or "snakebeta" (BigVGAN-v2)
+    snake_logscale: bool = True  # SnakeBeta's alpha and beta are stored as logs
+    use_tanh_at_final: bool = True  # else the waveform is clamped to [-1, 1]
+    use_bias_at_final: bool = True  # conv_post has a bias
 
     @property
     def upsample_factor(self) -> int:

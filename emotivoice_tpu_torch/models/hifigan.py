@@ -42,6 +42,7 @@ from emotivoice_tpu_torch.parallel.tensor_parallel import (
     RowParallel,
     as_group,
     conv1d,
+    conv1d_btc,
     conv_transpose1d,
 )
 
@@ -54,13 +55,14 @@ def _norm_except_dim0(v: torch.Tensor) -> torch.Tensor:
 
 
 class WeightNorm(nn.Module):
-    """weight = weight_g * weight_v / ||weight_v|| (norm over all but dim 0)."""
+    """weight = weight_g * weight_v / ||weight_v|| (norm over all but dim 0).
+    With `bias=False` the layer has none (`bias` is None)."""
 
-    def __init__(self, v_shape: Sequence[int], n_out: int):
+    def __init__(self, v_shape: Sequence[int], n_out: int, bias: bool = True):
         super().__init__()
         self.weight_g = nn.Parameter(torch.ones(v_shape[0], *(1,) * (len(v_shape) - 1)))
         self.weight_v = nn.Parameter(torch.zeros(*v_shape))
-        self.bias = nn.Parameter(torch.zeros(n_out))
+        self.bias = nn.Parameter(torch.zeros(n_out)) if bias else None
 
     def folded(self) -> torch.Tensor:
         """Effective torch-layout weight with the norm baked in (f32)."""
@@ -72,8 +74,8 @@ class WNConv1d(WeightNorm):
     """Weight-normalised Conv1d over (B, T, C); 'same' padding by default."""
 
     def __init__(self, c_in: int, c_out: int, kernel_size: int,
-                 dilation: int = 1, padding=None):
-        super().__init__((c_out, c_in, kernel_size), c_out)
+                 dilation: int = 1, padding=None, bias: bool = True):
+        super().__init__((c_out, c_in, kernel_size), c_out, bias)
         self.kernel_size = kernel_size
         self.dilation = dilation
         self.padding = (kernel_size - 1) // 2 * dilation if padding is None else padding
@@ -83,9 +85,8 @@ class WNConv1d(WeightNorm):
         return self.folded().permute(2, 1, 0).to(dtype).contiguous()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.conv1d(x.transpose(1, 2), self.folded().to(x.dtype),
-                     padding=self.padding, dilation=self.dilation)
-        return y.transpose(1, 2) + self.bias.to(x.dtype)
+        b = None if self.bias is None else self.bias.to(x.dtype)
+        return conv1d_btc(x, self.folded().to(x.dtype), b, self.padding, self.dilation)
 
     def op(self):
         """This layer's function of (input, weight, bias), for its parallel versions."""
@@ -204,6 +205,10 @@ class HiFiGANGenerator(nn.Module):
 
     def __init__(self, cfg: VocoderConfig, kernels: bool = True):
         super().__init__()
+        if not (cfg.use_tanh_at_final and cfg.use_bias_at_final):
+            raise ValueError("HiFi-GAN ends in a biased conv_post and tanh: use_tanh_at_final "
+                             f"{cfg.use_tanh_at_final}, use_bias_at_final "
+                             f"{cfg.use_bias_at_final} are BigVGAN-v2's forms")
         self.cfg = cfg
         self.kernels = kernels
         c = cfg

@@ -14,6 +14,7 @@ import torch
 from torch import nn
 
 from emotivoice_tpu_torch.config import EmotiVoiceConfig
+from emotivoice_tpu_torch.models import bigvgan
 from emotivoice_tpu_torch.models.acoustic import PromptTTS
 from emotivoice_tpu_torch.models.hifigan import (
     HiFiGANGenerator,
@@ -26,15 +27,26 @@ from emotivoice_tpu_torch.utils import marks
 
 
 class JETSGenerator(nn.Module):
-    """`kernels` is the vocoder's switch (`HiFiGANGenerator`): True for
-    serving, synthesis and validation, False for the trainer, whose
-    backward the kernels do not have."""
+    """The vocoder is the generator `cfg.vocoder.activation` names: HiFi-GAN
+    ("lrelu") or BigVGAN-v2 ("snakebeta", `models/bigvgan.py`). `kernels`
+    is HiFi-GAN's switch: True for serving, synthesis and validation, False
+    for the trainer, whose backward the kernels do not have. BigVGAN-v2
+    serves only, and refuses False."""
 
     def __init__(self, cfg: EmotiVoiceConfig, kernels: bool = True):
         super().__init__()
         self.cfg = cfg
         self.am = PromptTTS(cfg.am)
-        self.generator = HiFiGANGenerator(cfg.vocoder, kernels)
+        if cfg.vocoder.activation == "lrelu":
+            self.generator = HiFiGANGenerator(cfg.vocoder, kernels)
+        elif cfg.vocoder.activation == "snakebeta":
+            if not kernels:
+                raise ValueError(f"the {bigvgan.NAME} vocoder has no kernels=False "
+                                 "(training) path: it serves only")
+            self.generator = bigvgan.BigVGANGenerator(cfg.vocoder)
+        else:
+            raise ValueError(f"unknown vocoder activation {cfg.vocoder.activation!r}; "
+                             "one of ['lrelu', 'snakebeta']")
 
     @property
     def upsample_factor(self) -> int:

@@ -75,7 +75,7 @@ class Conv1dSame(nn.Conv1d):
         return y.transpose(1, 2) + self.bias.to(x.dtype)
 
     def op(self):
-        return conv1d(self.padding, self.dilation)
+        return conv1d(self.padding[0], self.dilation[0])
 
 
 def sinusoid_table(max_len: int, d_model: int) -> np.ndarray:

@@ -118,8 +118,11 @@ def _declare(lib: ctypes.CDLL) -> None:
                                       + [i32] * 10 + [vp])
     lib.evt_attention_bf16.argtypes = [vp] * 5 + [i32] * 4 + [ctypes.c_float, vp]
     lib.evt_attention_f32.argtypes = [vp] * 5 + [i32] * 4 + [ctypes.c_float, vp]
+    lib.evt_aa_snake_bf16.argtypes = [vp] * 6 + [i32] * 3 + [vp]
+    lib.evt_aa_snake_f32.argtypes = [vp] * 6 + [i32] * 3 + [vp]
     for fn in (lib.evt_residual_unit_bf16, lib.evt_residual_unit_f32, lib.evt_mrf_stage_bf16,
-               lib.evt_mrf_stage_f32, lib.evt_attention_bf16, lib.evt_attention_f32):
+               lib.evt_mrf_stage_f32, lib.evt_attention_bf16, lib.evt_attention_f32,
+               lib.evt_aa_snake_bf16, lib.evt_aa_snake_f32):
         fn.restype = i32
     lib.evt_error_string.argtypes = [i32]
     lib.evt_error_string.restype = ctypes.c_char_p

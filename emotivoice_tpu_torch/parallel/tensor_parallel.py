@@ -251,9 +251,38 @@ def as_group(group: Union[ModelGroup, Sequence[Device]]) -> ModelGroup:
 # the layers' functions of (input, weight, bias)
 # ---------------------------------------------------------------------------
 
+# cuDNN's bf16 dilated conv1d falls to a CUDA-core kernel (implicit_convolve_sgemm),
+# 10-20x slower, once C >= 192 and the kernel spans (k - 1) d >= 30 samples (BigVGAN-v2's
+# AMP blocks); elsewhere, and in f32, it beats the phase form by up to 2.4x (PERF.md §6,
+# measured on an H100).
+PHASE_MIN_CHANNELS = 192
+PHASE_MIN_SPAN = 30
+
+
+def conv1d_over_phases(h, w, padding, dilation):
+    """F.conv1d(h, w, padding=padding, dilation=dilation) over (B, C, T) as
+    an undilated (K, 1) conv2d over the d phases of time: the zero-padded
+    memory, its length a multiple of d, viewed as (B, C, T' / d, d)."""
+    d = dilation
+    t = h.shape[-1]
+    n = t + 2 * padding - d * (w.shape[-1] - 1)  # output samples
+    tp = -(-(t + 2 * padding) // d) * d
+    h = F.pad(h, (padding, tp - t - padding))
+    y = F.conv2d(h.reshape(*h.shape[:2], tp // d, d), w.unsqueeze(-1))
+    return y.reshape(*y.shape[:2], -1)[..., :n]
+
+
 def conv1d_btc(x, w, b, padding, dilation=1):
-    """Conv1d over feature-last (B, T, C); `b` may be None."""
-    y = F.conv1d(x.transpose(1, 2), w, padding=padding, dilation=dilation).transpose(1, 2)
+    """Conv1d over feature-last (B, T, C); `b` may be None. A dilated bf16
+    one that cuDNN would run on the CUDA cores runs over the phases of
+    time instead (`conv1d_over_phases`, the same function)."""
+    h = x.transpose(1, 2)
+    if (dilation > 1 and x.dtype == torch.bfloat16 and w.shape[1] >= PHASE_MIN_CHANNELS
+            and (w.shape[-1] - 1) * dilation >= PHASE_MIN_SPAN):
+        y = conv1d_over_phases(h, w, padding, dilation)
+    else:
+        y = F.conv1d(h, w, padding=padding, dilation=dilation)
+    y = y.transpose(1, 2)
     return y if b is None else y + b
 
 
@@ -424,7 +453,12 @@ def tensor_parallel(module: nn.Module, group: Union[ModelGroup, Sequence[Device]
     everything else moves to the group's home device. A group of one is
     `module.to(home)`. Over a `RankGroup` every rank of the group converts
     the same module (the same parameters) and keeps its own shard."""
+    from emotivoice_tpu_torch.models import bigvgan
+
     group = as_group(group)
+    if group.size > 1 and any(isinstance(m, bigvgan.BigVGANGenerator) for m in module.modules()):
+        raise ValueError(f"tensor parallelism does not take the {bigvgan.NAME} vocoder: "
+                         "serve it on one device")
     module.to(group.home)
     if group.size > 1:
         _convert(module, "", group)

@@ -35,6 +35,7 @@ import torch
 from emotivoice_tpu_torch.config import EmotiVoiceConfig
 from emotivoice_tpu_torch.frontend.tokens import TokenVocab
 from emotivoice_tpu_torch.models.jets import JETSGenerator
+from emotivoice_tpu_torch.ops.cuda.aa_snake import fused_aa_snake
 from emotivoice_tpu_torch.parallel.mesh import make_mesh, split_rows
 from emotivoice_tpu_torch.parallel.tensor_parallel import RankGroup, tensor_parallel
 from emotivoice_tpu_torch.serving import tracing
@@ -206,11 +207,15 @@ class SynthesisEngine:
 
     def program_counts(self) -> Optional[Dict[str, int]]:
         """Builds, rebuilds and CUDA graph captures of the bucket programs
-        over the replicas; None where the engine runs none."""
+        over the replicas, and the process's count of anti-aliased SnakeBeta
+        launches (`fused_aa_snake.launches`: 109 a BigVGAN-v2 generator call,
+        eager or replayed); None where the engine runs none."""
         if self.programs is None:
             return None
-        return {name: sum(getattr(c, name) for c in self.programs)
-                for name in ("builds", "rebuilds", "captures")}
+        out = {name: sum(getattr(c, name) for c in self.programs)
+               for name in ("builds", "rebuilds", "captures")}
+        out["fused_aa_snake_launches"] = fused_aa_snake.launches
+        return out
 
     def padded_rows(self, b: int) -> int:
         """Rows of the bucket `b` requests are padded to: the batch bucket,

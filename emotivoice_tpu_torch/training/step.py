@@ -60,6 +60,7 @@ import torch
 from torch import nn
 
 from emotivoice_tpu_torch.config import EmotiVoiceConfig
+from emotivoice_tpu_torch.models import bigvgan
 from emotivoice_tpu_torch.models.discriminator import (
     discriminator_loss,
     feature_loss,
@@ -108,6 +109,9 @@ class TrainStep:
     def __init__(self, cfg: EmotiVoiceConfig, model: nn.Module, disc: nn.Module,
                  steps_per_epoch: int = 1000, dtype: Union[str, torch.dtype] = torch.float32,
                  dp: Optional[DataParallel] = None):
+        if isinstance(model.generator, bigvgan.BigVGANGenerator):
+            raise ValueError(f"training does not take the {bigvgan.NAME} vocoder: its "
+                             "discriminators and losses are not part of the port")
         if model.generator.kernels:
             raise ValueError("train a generator built with kernels=False: the MRF "
                              "kernels have no backward")

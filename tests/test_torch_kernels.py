@@ -714,7 +714,7 @@ def test_find_nvcc_raises_when_absent(monkeypatch):
 def test_build_targets_sm90a_and_lists_every_source():
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
     names = sorted(p.rsplit("/", 1)[-1] for p in build._sources())
-    assert names == ["attention.cu", "mrf_stage.cu", "resblock.cu"]
+    assert names == ["aa_snake.cu", "attention.cu", "mrf_stage.cu", "resblock.cu"]
     headers = sorted(p.rsplit("/", 1)[-1] for p in os.listdir(build.CSRC_DIR) if p.endswith(".cuh"))
     # all hashed into the stamp; the mma.sync cores (mma_conv.cuh, mma_conv_f32.cuh) are gone
     assert headers == ["conv_tile.cuh", "hopper.cuh", "wgmma_conv_bf16.cuh", "wgmma_conv_f32.cuh"]
