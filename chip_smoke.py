@@ -455,6 +455,20 @@ def _rel_err(got, want) -> float:
     return float((got.float() - want.float()).abs().max() / want.float().abs().max())
 
 
+def valid_prefix(wav, n_frames, want, hop):
+    """An engine call's waveform (B, frames x hop) against a whole forward's:
+    (max |wav - want| over each row's first n_frames x hop samples, max
+    |want| there, whether those samples are equal bit for bit, whether every
+    sample of `wav` after them is 0). The engine copies only a row's
+    delivered samples to the host; the rest of its array is zero."""
+    wav, want = np.asarray(wav, np.float32), np.asarray(want, np.float32)
+    valid = np.arange(wav.shape[1])[None, :] < np.asarray(n_frames)[:, None] * hop
+    got, ref = wav[valid], want[valid]
+    return (float(np.abs(got - ref).max()), float(np.abs(ref).max()),
+            bool(np.array_equal(got.view(np.uint32), ref.view(np.uint32))),
+            not wav[~valid].any())
+
+
 def _timed_cudnn(fn, dtype):
     """Device ms of the cuDNN convolutions `fn` runs with TF32 off (the same
     function as the kernel: the yardstick) and, in f32, also with cuDNN's
@@ -954,6 +968,44 @@ def profiled_kernel_counts(fn):
                                        ("fused_attention", "attention_kernel"))}
 
 
+def replay_copies(call, dname: str) -> dict:
+    """One replay (`call`) under the profiler: the waveform leaves the card
+    only into pinned memory, in one copy per row after the frame counts',
+    with no pageable device-to-host copy; its `program.run` span carries
+    the bytes of the rows' valid samples and of the whole bucket."""
+    from emotivoice_tpu_torch.serving import tracing
+
+    got = []
+    tracing.clear()
+    busy, entries = device_kernels(lambda: got.append(call()), top=10 ** 6)
+    wav, n = got[0]
+    want = int(n.sum()) * (wav.shape[1] // BENCH_FRAMES) * 4
+    runs = [s for s in tracing.spans() if s.name == "program.run"]
+    attrs = runs[0].attrs if len(runs) == 1 else {}
+    if (attrs.get("kind") != "replay" or "copy_out" not in attrs
+            or (attrs.get("copy_bytes"), attrs.get("bucket_bytes")) != (want, wav.nbytes)):
+        fail(f"[main] {dname}: a replay's program.run spans {[s.attrs for s in runs]}, want one "
+             f"replay with copy_bytes {want}, bucket_bytes {wav.nbytes}")
+    out = dict(copy_bytes=want, bucket_bytes=wav.nbytes, copy_out_ms=attrs.get("copy_out"))
+    if busy is None:
+        log(f"[main] {dname} replay's copies to the host: the profiler saw no device time, "
+            "not counted")
+        return out
+    dtoh = [(key, ms, calls) for key, ms, calls in entries if "DtoH" in key]
+    pageable = sum(calls for key, _, calls in dtoh if "Pageable" in key)
+    pinned = sum(calls for key, _, calls in dtoh if "Pinned" in key)
+    out.update(pageable=pageable, pinned=pinned,
+               pinned_ms=sum(ms for key, ms, _ in dtoh if "Pinned" in key))
+    log(f"[main] {dname} replay's copies to the host (torch.profiler): {pinned} into pinned "
+        f"memory ({out['pinned_ms']:.3f} ms), {pageable} into pageable; {want} of "
+        f"{wav.nbytes} waveform bytes copied ({want / wav.nbytes:.1%}); copy_out "
+        f"{out['copy_out_ms']:.3f} ms by the program's events")
+    if pageable or pinned != len(n) + 1:
+        fail(f"[main] {dname}: a replay copied {dtoh} to the host, want {len(n) + 1} pinned "
+             "copies (the frame counts, then one per row) and none pageable")
+    return out
+
+
 def bench_bucket_program(dev, cfg, vocab, model, dname: str, args) -> dict:
     """The bench bucket's program in one dtype against the eager forward of
     the same replica: the first call (the eager forward) and the second
@@ -988,19 +1040,29 @@ def bench_bucket_program(dev, cfg, vocab, model, dname: str, args) -> dict:
         return out["wav_predictions"].cpu().numpy(), out["output_lengths"].cpu().numpy()
 
     def against_eager(what, alpha=1.0, replayed=True):
-        """One engine call against the eager forward; `replayed`: the call
-        replays the graph, else it is a program's first call (eager)."""
+        """One engine call against the eager forward, on each row's valid
+        samples (the rest of the call's array must be 0); `replayed`: the
+        call replays the graph, else it is a program's first call (eager).
+        A replay's copy-out must equal, bit for bit on those samples, the
+        whole padded waveform copied from the graph's outputs and the eager
+        forward's."""
         wav, n = call(alpha)
-        if replayed != (cache.get(key).graph is not None):
+        prog = cache.get(key)
+        if replayed != (prog.graph is not None):
             fail(f"[main] {dname} {what}: {'no' if replayed else 'a'} graph after the call")
+        untrimmed = prog.outputs["wav_predictions"].cpu().numpy() if replayed else None
         want, want_n = eager(alpha)
-        scale = float(np.abs(want).max())
-        err = float(np.abs(wav - want).max()) / max(scale, 1e-30)
+        hop = wav.shape[1] // BENCH_FRAMES
+        err, scale, exact, tails = valid_prefix(wav, n, want, hop)
+        err /= max(scale, 1e-30)
+        copied = valid_prefix(wav, n, untrimmed, hop)[2] if replayed else None
         log(f"[main] {dname} {what}: {'replay' if replayed else 'first call'} vs eager "
-            f"{err:.2e} of max (tol {tol:g}), output_lengths "
-            f"{'equal' if np.array_equal(n, want_n) else 'DIFFER'}")
+            f"{err:.2e} of max on the valid samples (tol {tol:g}; bit for bit: {exact}), "
+            f"output_lengths {'equal' if np.array_equal(n, want_n) else 'DIFFER'}, samples "
+            f"after them {'0' if tails else 'NOT 0'}"
+            + (f", vs the graph's whole output copied: bit for bit {copied}" if replayed else ""))
         if (not np.array_equal(n, want_n) or not np.all(np.isfinite(wav)) or scale < 1e-3
-                or not err <= tol):
+                or not err <= tol or not tails or (replayed and not (exact and copied))):
             fail(f"[main] {dname} {what}: the program disagrees with the eager forward")
         return wav, err
 
@@ -1026,6 +1088,7 @@ def bench_bucket_program(dev, cfg, vocab, model, dname: str, args) -> dict:
     if counted != want_launches:
         fail(f"[main] {dname}: one replay counted {counted} launches, not {want_launches}")
     busy_replay, traced = profiled_kernel_counts(call)
+    copy_out = replay_copies(call, dname)
     busy_eager, traced_eager = profiled_kernel_counts(
         lambda: eng._run_eager(0, args, BENCH_FRAMES, 1.0))
     if traced != want_launches:
@@ -1112,7 +1175,7 @@ def bench_bucket_program(dev, cfg, vocab, model, dname: str, args) -> dict:
                 runs_ms=runs, busy_replay_ms=busy_replay, busy_eager_ms=busy_eager,
                 launches_counted=counted, launches_traced=traced,
                 launches_traced_eager=traced_eager, programs=len(cache), builds=cache.builds,
-                rebuilds=cache.rebuilds)
+                rebuilds=cache.rebuilds, copy_out=copy_out)
 
 
 LONG_KEY = (16, 256, 2048)  # the longest text and mel buckets, at the bulk cells' batch
@@ -1150,8 +1213,8 @@ def long_bucket_replay(dev, cfg, vocab, model) -> dict:
     with torch.inference_mode():
         out = model(*tensors, max_frames=frames, dtype=torch.bfloat16)
     ref, ref_n = out["wav_predictions"].float().cpu().numpy(), out["output_lengths"].cpu().numpy()
-    scale = float(np.abs(ref).max())
-    err = float(np.abs(wav - ref).max()) / max(scale, 1e-30)
+    err, scale, exact, tails = valid_prefix(wav, ref_n, ref, wav.shape[1] // frames)
+    err /= max(scale, 1e-30)
 
     def attention_in(fn):
         busy, entries = device_kernels(fn, top=10**6)
@@ -1162,12 +1225,14 @@ def long_bucket_replay(dev, cfg, vocab, model) -> dict:
     busy_e, traced_e, ms_e = attention_in(lambda: eng._run_eager(0, other, frames, 1.0))
     log(f"[main] bf16 program at {b} x {t_text} tokens x {frames} frames (valid frames "
         f"{int(ref_n.min())}-{int(ref_n.max())}), replayed on inputs other than its capture's: "
-        f"{err:.2e} of max from the eager forward (tol {TOL_GRAPH['bf16']:g}), output_lengths "
+        f"{err:.2e} of max from the eager forward on each row's valid samples (tol "
+        f"{TOL_GRAPH['bf16']:g}; bit for bit: {exact}), the samples after them "
+        f"{'0' if tails else 'NOT 0'}, output_lengths "
         f"{'equal' if np.array_equal(n, ref_n) else 'DIFFER'}; attention launches {counted} "
         f"(accounting), {traced_r} (profiler, replay; {ms_r:.3f} ms of {busy_r} ms busy), "
         f"{traced_e} (profiler, eager call; {ms_e:.3f} ms of {busy_e} ms busy), want {want}")
     if (not np.array_equal(n, ref_n) or not np.all(np.isfinite(wav)) or scale < 1e-3
-            or not err <= TOL_GRAPH["bf16"] or counted != want or traced_e != want):
+            or not err <= TOL_GRAPH["bf16"] or not tails or counted != want or traced_e != want):
         fail(f"[main] the program at {LONG_KEY} disagrees with the eager forward or launched "
              f"{counted} / {traced_e} attention kernels, not {want}")
     del eng
@@ -1499,13 +1564,15 @@ def replay_on_cpu(cpu_model, served) -> list:
         real = int((call["args"][1] > 1).sum())
         if not torch.equal(cpu["durations"], call["durations"]):
             fail(f"replay of served call {key}: durations differ between card and CPU")
-        scale = float(cpu["wav_predictions"].abs().max())
-        err = float((cpu["wav_predictions"] - call["wav"]).abs().max())
+        err, scale, _, tails = valid_prefix(call["wav"].numpy(), cpu["output_lengths"].numpy(),
+                                            cpu["wav_predictions"].numpy(),
+                                            call["wav"].shape[1] // call["max_frames"])
         log(f"[serve] replay on the CPU of a served call, batch {rows} ({real} requests) x "
             f"{call['tokens']} tokens x {call['max_frames']} frames: durations equal, wav max "
-            f"|card - cpu| {err:.2e} (max |wav| {scale:.3f}, tol {TOL_CPU} x max), "
+            f"|card - cpu| {err:.2e} on each row's valid samples (max |wav| {scale:.3f}, tol "
+            f"{TOL_CPU} x max), the card's samples after them {'0' if tails else 'NOT 0'}, "
             f"{secs:.1f} s on the CPU")
-        if scale < 1e-3 or err > TOL_CPU * scale:
+        if scale < 1e-3 or err > TOL_CPU * scale or not tails:
             fail(f"replay of served call {key}: card and CPU waveforms disagree")
         out.append(dict(batch=rows, requests=real, tokens=call["tokens"],
                         max_frames=call["max_frames"], err=err, scale=scale, cpu_seconds=secs))
@@ -1853,8 +1920,13 @@ def phase_serve(dev, cfg, vocab, model, embedder, cpu_model, profiled: bool) -> 
         f"{launches}, duration overflow {overflow}; the programs' shared graph pool "
         f"{pool / 2**20:.1f} MiB after the grid")
     lat, rtf = metrics["latency_s"], metrics["rtf"]
+    copied = {k: metrics.get("programs", {}).get(k) for k in ("copy_bytes", "bucket_bytes")}
     log(f"[serve] /v1/metrics: latency p50 {lat['p50'] * 1e3:.1f} ms, p95 {lat['p95'] * 1e3:.1f} ms; "
-        f"RTF p50 {rtf['p50']:.4f}; {metrics['audio_seconds_served']} s of audio")
+        f"RTF p50 {rtf['p50']:.4f}; {metrics['audio_seconds_served']} s of audio; waveform bytes "
+        f"copied to the host {copied['copy_bytes']} of {copied['bucket_bytes']}")
+    if not (isinstance(copied["copy_bytes"], int) and 0 < copied["copy_bytes"]
+            < (copied["bucket_bytes"] or 0)):
+        fail(f"/v1/metrics: programs {metrics.get('programs')}: want 0 < copy_bytes < bucket_bytes")
     split = {}
     for name, posts in zip(("first burst", "second burst"), bursts):
         recs = [by_input[(b["input"], False)] for b in posts]
@@ -4292,14 +4364,15 @@ def phase_bigvgan(dev) -> dict:
         if launched is not None and fused_aa_snake.launches != launched:
             fail(f"[bigvgan] {what}: {fused_aa_snake.launches} aa_snake launches, not {launched}")
         want, want_n = eager(args)
-        scale = float(np.abs(want).max())
-        err = float(np.abs(wav - want).max()) / max(scale, 1e-30)
-        log(f"[bigvgan] {what}: vs the eager forward {err:.2e} of max (tol "
-            f"{TOL_GRAPH['bf16']:g}), output_lengths "
+        err, scale, exact, tails = valid_prefix(wav, n, want, wav.shape[1] // frames)
+        err /= max(scale, 1e-30)
+        log(f"[bigvgan] {what}: vs the eager forward {err:.2e} of max on each row's valid "
+            f"samples (tol {TOL_GRAPH['bf16']:g}; bit for bit: {exact}), the samples after "
+            f"them {'0' if tails else 'NOT 0'}, output_lengths "
             f"{'equal' if np.array_equal(n, want_n) else 'DIFFER'}, max |wav| {scale:.3f}, "
-            f"clamped {float(np.mean(np.abs(wav) >= 1.0)):.2e}")
+            f"clamped {float(np.mean(np.abs(want) >= 1.0)):.2e}")
         if (not np.array_equal(n, want_n) or not np.all(np.isfinite(wav)) or scale < 1e-3
-                or not err <= TOL_GRAPH["bf16"]):
+                or not err <= TOL_GRAPH["bf16"] or not tails):
             fail(f"[bigvgan] {what}: the program disagrees with the eager forward")
         return err
 

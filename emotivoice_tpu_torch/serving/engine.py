@@ -39,7 +39,8 @@ from emotivoice_tpu_torch.ops.cuda.aa_snake import fused_aa_snake
 from emotivoice_tpu_torch.parallel.mesh import make_mesh, split_rows
 from emotivoice_tpu_torch.parallel.tensor_parallel import RankGroup, tensor_parallel
 from emotivoice_tpu_torch.serving import tracing
-from emotivoice_tpu_torch.serving.programs import BucketProgram, ProgramCache
+from emotivoice_tpu_torch.serving.programs import (BucketProgram, HostStaging, ProgramCache,
+                                                   to_host)
 from emotivoice_tpu_torch.utils.device import resolve_device, resolve_dtype
 
 DEFAULT_TEXT_BUCKETS = (16, 32, 48, 64, 96, 128, 192, 256)
@@ -122,7 +123,9 @@ class SynthesisEngine:
     a service with batching off) may rely on at most one bucket being in
     progress on this engine at any time. The graphs of a replica rely on
     it: they share one pool, so a graph's outputs are copied to the host
-    before another may replay.
+    before another may replay, and so does each replica's host staging
+    buffer (`programs.HostStaging`), which the next call overwrites: what
+    `run` returns never aliases it.
     """
 
     def __init__(
@@ -171,6 +174,10 @@ class SynthesisEngine:
                 pool = torch.cuda.graph_pool_handle() if dev.type == "cuda" else None
                 self.programs.append(ProgramCache(functools.partial(
                     BucketProgram, replica, device=dev, dtype=self.dtype, pool=pool), pool))
+        # Each replica's copy of its waveforms to the host: its programs',
+        # which `_run_eager` shares.
+        self.staging = ([c.staging for c in self.programs] if self.programs is not None
+                        else [HostStaging() for _ in self.replicas])
         self.vocab = vocab
         self.text_buckets = tuple(text_buckets)
         self.mel_buckets = tuple(mel_buckets)
@@ -207,13 +214,16 @@ class SynthesisEngine:
 
     def program_counts(self) -> Optional[Dict[str, int]]:
         """Builds, rebuilds and CUDA graph captures of the bucket programs
-        over the replicas, and the process's count of anti-aliased SnakeBeta
-        launches (`fused_aa_snake.launches`: 109 a BigVGAN-v2 generator call,
-        eager or replayed); None where the engine runs none."""
+        over the replicas, the waveform bytes their calls copied to the host
+        and those of the whole padded waveforms (`copy_bytes`,
+        `bucket_bytes`: 0 on the CPU, where nothing crosses), and the
+        process's count of anti-aliased SnakeBeta launches
+        (`fused_aa_snake.launches`: 109 a BigVGAN-v2 generator call, eager
+        or replayed); None where the engine runs none."""
         if self.programs is None:
             return None
         out = {name: sum(getattr(c, name) for c in self.programs)
-               for name in ("builds", "rebuilds", "captures")}
+               for name in ("builds", "rebuilds", "captures", "copy_bytes", "bucket_bytes")}
         out["fused_aa_snake_launches"] = fused_aa_snake.launches
         return out
 
@@ -248,7 +258,7 @@ class SynthesisEngine:
 
     def _run_eager(self, i: int, arrays, max_frames: int, alpha: float):
         """Replica i's forward, launched op by op (inference mode is per
-        thread)."""
+        thread), copied to the host as a program's (`programs.to_host`)."""
         dev = self.groups[i][0]
         tokens, lengths, speaker, style, content = arrays
         with torch.inference_mode():
@@ -263,13 +273,17 @@ class SynthesisEngine:
             n_frames = out["output_lengths"]
             if self.model_group is not None:
                 n_frames = self.model_group.broadcast(n_frames.contiguous())
-            return out["wav_predictions"].cpu().numpy(), n_frames.cpu().numpy()
+            wav, n_frames, _ = to_host(out["wav_predictions"], n_frames, max_frames,
+                                       self.staging[i])
+            return wav, n_frames
 
     def run(self, tokens, lengths, speaker, style, content, max_frames: int,
             alpha: float) -> Tuple[np.ndarray, np.ndarray]:
         """One padded bucket through the model: numpy in, (wav (B, max_frames
-        * hop) f32, n_frames (B,)) numpy out. With n replicas, B must be a
-        multiple of n: replica i takes rows [i B/n, (i+1) B/n)."""
+        * hop) f32, n_frames (B,)) numpy out, arrays the caller owns; on a
+        card each row holds its first n_frames * hop samples and zeros after.
+        With n replicas, B must be a multiple of n: replica i takes rows
+        [i B/n, (i+1) B/n)."""
         arrays = (tokens, lengths, speaker, style, content)
         n = len(self.replicas)
         capture = getattr(self._capturing, "on", False)

@@ -36,6 +36,13 @@ What a replay reads, and what keeps it right:
   lie, so a program's outputs hold only until another program of the pool
   replays. The engine replays one replica's programs one at a time, under
   its run lock, and copies each output to the host before it releases it.
+
+The copy to the host (`HostStaging`): on a card only each row's delivered
+samples cross, its first n_frames x hop, into one pinned host buffer that
+the replica's programs share and reuse, and from there into a zeroed array
+the caller owns, whose memory is reused once the caller has dropped it.
+The padded tail of a bucket (three quarters of its samples in the served
+traffic) never leaves the card.
 """
 
 from __future__ import annotations
@@ -45,6 +52,7 @@ import contextlib
 import gc
 import threading
 import time
+import weakref
 from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
@@ -127,6 +135,147 @@ def _addresses(slots) -> list:
     return out
 
 
+class _Lease:
+    """The owner of a result buffer while the caller holds arrays of it:
+    numpy reaches the memory through `__array_interface__`, and every array
+    made from it keeps the lease alive, so the lease dies with the last."""
+
+    __slots__ = ("buffer", "__array_interface__", "__weakref__")
+
+    def __init__(self, buffer: np.ndarray):
+        self.buffer = buffer
+        self.__array_interface__ = dict(shape=buffer.shape, typestr=buffer.dtype.str,
+                                        data=(buffer.ctypes.data, False), version=3)
+
+
+class HostStaging:
+    """Where one replica's waveforms cross to the host. `copy_out` copies
+    each row's first n_frames x hop samples into one flat staging buffer,
+    pinned when the waveform is on a card, packed row after row; the buffer
+    grows to the largest bucket's waveform the replica has copied and is
+    reused after. From there the samples go into a result buffer that the
+    caller's arrays hold; once no array of it is left, the buffer comes back
+    to be reused (at most `KEEP` wait), with only the spans the last call
+    wrote zeroed again. Memory the process has written before costs a copy;
+    fresh memory costs a page fault per page first written, which on a
+    sandboxed host cost as much as the whole copy did. So the result buffer
+    is made ready (zeroed, and a new one written through) before the wait
+    for the card, while the card still runs the call.
+
+    `copy_out` is not thread-safe: the engine's run lock serializes a
+    replica's calls (a buffer may come back from any thread). `copy_bytes`
+    and `bucket_bytes` sum, over the calls, the waveform bytes that crossed
+    and those a copy of the whole padded waveform would have moved."""
+
+    KEEP = 2  # result buffers kept for reuse
+
+    def __init__(self):
+        self.buffer: Optional[torch.Tensor] = None  # flat f32
+        self.lengths: Optional[torch.Tensor] = None  # the frame counts, int64
+        self.grows = 0  # allocations of `buffer`
+        self.results = 0  # result buffers allocated
+        self.copy_bytes = 0
+        self.bucket_bytes = 0
+        self._event: Optional[torch.cuda.Event] = None
+        self._free: list = []  # (result buffer, the (start, end) spans it holds samples in)
+        self._free_lock = threading.Lock()
+
+    def _room(self, samples: int, rows: int, pin: bool) -> None:
+        if self.buffer is None or self.buffer.numel() < samples:
+            self.buffer = None  # the old one goes first
+            self.buffer = torch.empty(samples, dtype=torch.float32, pin_memory=pin)
+            self.grows += 1
+        if self.lengths is None or self.lengths.numel() < rows:
+            self.lengths = torch.empty(rows, dtype=torch.int64, pin_memory=pin)
+
+    def _wait(self, stream) -> None:
+        """Until the work on `stream` so far is done (nothing on the CPU)."""
+        if stream is None:
+            return
+        if self._event is None:
+            self._event = torch.cuda.Event()
+        self._event.record(stream)
+        self._event.synchronize()
+
+    def _result(self, samples: int) -> np.ndarray:
+        """A flat f32 buffer, its first `samples` zeros written (so copying
+        into them takes no page fault), that no caller holds: one given back
+        (one too small for this call is dropped) with the spans its last
+        call wrote zeroed again, or a new one as large as the staging
+        buffer."""
+        with self._free_lock:
+            buf = spans = None
+            while self._free and buf is None:
+                buf, spans = self._free.pop()
+                if buf.size < samples:
+                    buf = None
+        if buf is None:
+            self.results += 1
+            buf = np.zeros(self.buffer.numel(), np.float32)
+            spans = [(0, samples)]
+        for a, b in spans:
+            buf[a:b] = 0
+        return buf
+
+    def _give_back(self, buf: np.ndarray, spans: list) -> None:
+        with self._free_lock:
+            if len(self._free) < self.KEEP:
+                self._free.append((buf, spans))
+
+    def copy_out(self, wav: torch.Tensor, n_frames: torch.Tensor, max_frames: int,
+                 mark: Optional[Callable[[], None]] = None) -> Tuple[np.ndarray, np.ndarray, int]:
+        """(wav (B, max_frames x hop) f32, n_frames (B,)) numpy, arrays the
+        caller owns (no later call writes them), and the waveform bytes
+        copied. Row i holds its first n_frames[i] x hop samples of `wav` as
+        they are and zeros after. On a card the frame counts come over first
+        (one wait), then one copy per row on the card's current stream;
+        `mark` is called once the last copy is on the stream, before the
+        wait for it."""
+        rows, width = wav.shape
+        hop = width // max_frames
+        pin = wav.device.type == "cuda"
+        stream = torch.cuda.current_stream(wav.device) if pin else None
+        self._room(rows * width, rows, pin)
+        buf = self._result(rows * width)  # on the host while the card still computes
+        lengths = self.lengths[:rows]
+        lengths.copy_(n_frames, non_blocking=pin)
+        self._wait(stream)
+        n = lengths.numpy().copy()
+        counts = np.clip(n, 0, max_frames) * hop
+        starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+        for i, (at, c) in enumerate(zip(starts, counts)):
+            if c:
+                self.buffer[at:at + c].copy_(wav[i, :c], non_blocking=pin)
+        if mark is not None:
+            mark()
+        self._wait(stream)
+        host = self.buffer.numpy()
+        out = buf[:rows * width].reshape(rows, width)
+        for i, (at, c) in enumerate(zip(starts, counts)):
+            out[i, :c] = host[at:at + c]
+        lease = _Lease(buf)
+        weakref.finalize(lease, self._give_back, buf,
+                         [(i * width, i * width + c) for i, c in enumerate(counts)]).atexit = False
+        moved = int(counts.sum()) * 4
+        self.copy_bytes += moved
+        self.bucket_bytes += rows * width * 4
+        return np.asarray(lease)[:rows * width].reshape(rows, width), n, moved
+
+
+def to_host(wav: torch.Tensor, n_frames: torch.Tensor, max_frames: int, staging: HostStaging,
+            mark: Optional[Callable[[], None]] = None) -> Tuple[np.ndarray, np.ndarray, Optional[int]]:
+    """A forward's waveform and frame counts as numpy (`HostStaging.
+    copy_out`), and the waveform bytes that crossed to the host. A CPU
+    forward's outputs are on the host already: they are handed back as
+    they are (the forward made them for this call), and None crossed."""
+    if wav.device.type != "cpu":
+        return staging.copy_out(wav, n_frames, max_frames, mark)
+    out = wav.numpy(), n_frames.numpy(), None
+    if mark is not None:
+        mark()
+    return out
+
+
 class BucketProgram:
     """The forward of `model` (one replica, on `device`) at one key, on
     static buffers: a CUDA graph on a card, eager on the CPU. On a card
@@ -146,6 +295,7 @@ class BucketProgram:
         self.outputs: Optional[Dict[str, torch.Tensor]] = None  # the graph's static outputs
         self.capture_seconds: Optional[float] = None
         self.cache: Optional["ProgramCache"] = None  # counts this program's capture
+        self.staging = HostStaging()  # its cache's, once in one
         # The model's marks (utils/marks.py) record these events: inside a
         # capture they become event-record nodes of the graph, always, so
         # the graph is the same whether or not a profiler runs. The events
@@ -226,12 +376,16 @@ class BucketProgram:
     def run(self, arrays: Sequence[np.ndarray], alpha: float,
             capture: bool = False) -> Tuple[np.ndarray, np.ndarray]:
         """One bucket: (tokens, lengths, speaker, style, content) numpy in,
-        (wav_predictions, output_lengths) numpy out. The first call is the
-        eager forward on the caller's stream; on a card the second captures
-        (or the first, after its forward, with `capture`), and every call
-        after the capture replays. While a profiler runs, records the span
-        `program.run` (tracing), with the parts' device milliseconds on a
-        card where the call did not capture."""
+        (wav_predictions (rows, max_frames x hop) f32, output_lengths)
+        numpy out, arrays the caller owns. On a card each row holds its
+        first n_frames x hop samples and zeros after (`to_host`; the rest
+        never leaves the card). The first call is the eager forward on the
+        caller's stream; on a card the second captures (or the first, after
+        its forward, with `capture`), and every call after the capture
+        replays. While a profiler runs, records the span `program.run`
+        (tracing), on a card with the waveform bytes copied and those of
+        the whole bucket, and with the parts' device milliseconds where the
+        call did not capture."""
         span = tracing.begin("program.run")
         timed = span is not None and bool(self._events)
         with torch.inference_mode():
@@ -259,13 +413,17 @@ class BucketProgram:
                     self.capture()
             if timed:
                 self._record("computed")
-            wav, n_frames = out["wav_predictions"].cpu().numpy(), out["output_lengths"].cpu().numpy()
+            kind = "replay" if replay else "capture" if self.graph is not None else "eager"
+            # a capture's warm-up run moved the marks
+            end = (lambda: self._record("end")) if timed and kind != "capture" else None
+            wav, n_frames, moved = to_host(out["wav_predictions"], out["output_lengths"],
+                                           self.max_frames, self.staging, end)
             if span is not None:
-                kind = "replay" if replay else "capture" if self.graph is not None else "eager"
-                if timed and kind != "capture":  # a capture's warm-up run moved the marks
-                    self._record("end")
+                if end is not None:
                     self._events["end"].synchronize()
                     span.attrs.update(self._device_ms())
+                if moved is not None:
+                    span.attrs.update(copy_bytes=moved, bucket_bytes=wav.nbytes)
                 tracing.end(span, kind=kind)
             return wav, n_frames
 
@@ -283,6 +441,7 @@ class ProgramCache:
         self.builds = 0  # programs built, rebuilds included
         self.rebuilds = 0  # of those, stale programs built again
         self.captures = 0  # CUDA graphs captured by its programs
+        self.staging = HostStaging()  # the replica's copy to the host, shared by its programs
 
     def __len__(self) -> int:
         return len(self._programs)
@@ -297,12 +456,22 @@ class ProgramCache:
             self.rebuilds += 1
         if prog is None:
             prog = self._build(key)
-            prog.cache = self
+            prog.cache, prog.staging = self, self.staging
             self.builds += 1
         self._programs[key] = prog
         while len(self._programs) > MAX_PROGRAMS:
             self._programs.popitem(last=False)
         return prog
+
+    @property
+    def copy_bytes(self) -> int:
+        """Waveform bytes its programs copied to the host (`HostStaging`)."""
+        return self.staging.copy_bytes
+
+    @property
+    def bucket_bytes(self) -> int:
+        """The bytes of the whole padded waveforms of those calls."""
+        return self.staging.bucket_bytes
 
     def capture_seconds(self) -> Dict[Key, float]:
         """Each kept program's capture time, of those captured."""

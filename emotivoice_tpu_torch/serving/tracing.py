@@ -18,7 +18,9 @@ at their boundaries:
   each dispatch.
 - `engine.results`: slicing a dispatch's rows into results.
 - `program.run`: one `BucketProgram.run`; `kind` ("eager", "capture" or
-  "replay"), and on a card the device milliseconds of its parts
+  "replay"), and on a card `copy_bytes` (the waveform bytes that crossed to
+  the host: each row's delivered samples), `bucket_bytes` (those of the
+  whole padded waveform) and the device milliseconds of its parts
   (`DEVICE_PARTS`), from CUDA timing events read after the copy-out.
 
 Recording is on exactly while the profiler runs (PyTorch's own flag for

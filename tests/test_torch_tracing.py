@@ -245,8 +245,9 @@ def test_captures_stay_zero_on_the_cpu_and_reach_v1_metrics(engine):
         th.join(timeout=30)
         svc.close()
     assert not th.is_alive()
-    assert snap["programs"] == {"builds": 1, "rebuilds": 0, "captures": 0,
-                                "fused_aa_snake_launches": 0}  # the CPU launches no kernel
+    # the CPU launches no kernel, and its waveforms cross no bus
+    assert snap["programs"] == {"builds": 1, "rebuilds": 0, "captures": 0, "copy_bytes": 0,
+                                "bucket_bytes": 0, "fused_aa_snake_launches": 0}
     assert engine.program_counts() == snap["programs"]
 
 
