@@ -28,7 +28,7 @@ from torch import nn
 
 from emotivoice_tpu_torch.config import DiscriminatorConfig
 from emotivoice_tpu_torch.models.hifigan import LRELU_SLOPE, WeightNorm
-from emotivoice_tpu_torch.parallel.tensor_parallel import conv2d
+from emotivoice_tpu_torch.ops.conv import conv2d
 
 Conv1dSpec = Tuple[int, int, int, int, int]  # (out_ch, kernel, stride, groups, pad)
 

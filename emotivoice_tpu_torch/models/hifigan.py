@@ -37,14 +37,8 @@ from torch import nn
 from emotivoice_tpu_torch.config import VocoderConfig
 from emotivoice_tpu_torch.ops.cuda.mrf_stage import fused_mrf_stage
 from emotivoice_tpu_torch.ops.cuda.resblock import fused_residual_unit, lrelu
-from emotivoice_tpu_torch.parallel.tensor_parallel import (
-    ColumnParallel,
-    RowParallel,
-    as_group,
-    conv1d,
-    conv1d_btc,
-    conv_transpose1d,
-)
+from emotivoice_tpu_torch.ops.conv import conv1d, conv1d_btc, conv_transpose1d
+from emotivoice_tpu_torch.parallel.tensor_parallel import ColumnParallel, RowParallel, as_group
 
 LRELU_SLOPE = 0.1
 FUSED_UNIT_MIN_CHANNELS = 128  # C at or above: per-unit kernel; below: whole stage

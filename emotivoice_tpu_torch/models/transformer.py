@@ -28,12 +28,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from emotivoice_tpu_torch.ops.cuda import attention
-from emotivoice_tpu_torch.parallel.tensor_parallel import (
-    ColumnParallel,
-    RowParallel,
-    as_group,
-    conv1d,
-)
+from emotivoice_tpu_torch.ops.conv import conv1d
+from emotivoice_tpu_torch.parallel.tensor_parallel import ColumnParallel, RowParallel, as_group
 
 LN_EPS = 1e-12
 

@@ -23,6 +23,13 @@ from emotivoice_tpu.models.jets import JETSGenerator as JJETS
 from emotivoice_tpu.ops import align as jalign
 from emotivoice_tpu_torch.ops import align as talign
 
+# The JAX functions jitted: one compile per shape, where op-by-op dispatch
+# compiles each primitive.
+_prior = jax.jit(jalign.beta_binomial_prior, static_argnums=(2, 3))
+_viterbi = jax.jit(jalign.viterbi_decode)
+_average_by_path = jax.jit(jalign.average_by_path, static_argnums=4)
+_forward_sum_loss = jax.jit(jalign.forward_sum_loss)
+
 
 def _case(seed, b=3, t_text=9, t_feats=31):
     rng = np.random.RandomState(seed)
@@ -30,7 +37,7 @@ def _case(seed, b=3, t_text=9, t_feats=31):
     feats = np.array([t_feats, t_feats - 7, 12][:b], np.int32)
     scores = rng.randn(b, t_feats, t_text).astype(np.float32) * 2.0
     lp = np.asarray(jax.nn.log_softmax(jnp.asarray(scores), axis=-1))
-    lp = lp + np.asarray(jalign.beta_binomial_prior(text, feats, t_text, t_feats))
+    lp = lp + np.asarray(_prior(text, feats, t_text, t_feats))
     return lp.astype(np.float32), text, feats
 
 
@@ -40,7 +47,7 @@ def _t(*arrays):
 
 def test_prior_matches_jax():
     text, feats = np.array([9, 6, 4], np.int32), np.array([60, 23, 12], np.int32)
-    want = np.asarray(jalign.beta_binomial_prior(text, feats, 9, 60))
+    want = np.asarray(_prior(text, feats, 9, 60))
     got = talign.beta_binomial_prior(*_t(text, feats), 9, 60).numpy()
     valid = want > -1e29
     assert valid.sum() == sum(int(a) * int(b) for a, b in zip(text, feats))
@@ -51,7 +58,7 @@ def test_prior_matches_jax():
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_viterbi_matches_jax(seed):
     lp, text, feats = _case(seed)
-    want_d, want_bin, want_path = jalign.viterbi_decode(jnp.asarray(lp), text, feats)
+    want_d, want_bin, want_path = _viterbi(jnp.asarray(lp), text, feats)
     got_d, got_bin, got_path = talign.viterbi_decode(*_t(lp, text, feats))
     np.testing.assert_array_equal(got_path.numpy(), np.asarray(want_path))
     np.testing.assert_array_equal(got_d.numpy(), np.asarray(want_d))
@@ -66,21 +73,21 @@ def test_viterbi_tie_rules_match_jax():
     b, t_text, t_feats = 2, 6, 17
     lp = np.zeros((b, t_feats, t_text), np.float32)
     text, feats = np.array([6, 4], np.int32), np.array([17, 9], np.int32)
-    _, _, want_path = jalign.viterbi_decode(jnp.asarray(lp), text, feats)
+    _, _, want_path = _viterbi(jnp.asarray(lp), text, feats)
     _, _, got_path = talign.viterbi_decode(*_t(lp, text, feats))
     np.testing.assert_array_equal(got_path.numpy(), np.asarray(want_path))
 
 
 def test_average_by_path_and_forward_sum_match_jax():
     lp, text, feats = _case(3)
-    _, _, path = jalign.viterbi_decode(jnp.asarray(lp), text, feats)
+    _, _, path = _viterbi(jnp.asarray(lp), text, feats)
     xs = np.random.RandomState(4).randn(*lp.shape[:2]).astype(np.float32)
-    want = np.asarray(jalign.average_by_path(path, jnp.asarray(xs), text, feats, lp.shape[2]))
+    want = np.asarray(_average_by_path(path, jnp.asarray(xs), text, feats, lp.shape[2]))
     got = talign.average_by_path(*_t(np.asarray(path).astype(np.int64), xs, text, feats),
                                  lp.shape[2]).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
     assert np.all(got[2, 4:] == 0)
-    want_fs = float(jalign.forward_sum_loss(jnp.asarray(lp), text, feats))
+    want_fs = float(_forward_sum_loss(jnp.asarray(lp), text, feats))
     got_fs = float(talign.forward_sum_loss(*_t(lp, text, feats)))
     assert want_fs > 0.1
     np.testing.assert_allclose(got_fs, want_fs, rtol=1e-5)

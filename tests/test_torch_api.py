@@ -22,6 +22,7 @@ from test_torch_support import (
     StandInTokenizer,
     both_configs,
     jax_jets_params,
+    jax_lax_engine,
     jax_style_params,
     port_jets,
     port_style_encoder,
@@ -62,7 +63,7 @@ def setup():
     jc = jc.replace(am=jc.am.__class__(**{**jc.am.__dict__, "n_vocab": n}))
     tc = tc.replace(am=tc.am.__class__(**{**tc.am.__dict__, "n_vocab": n}))
     params = jax_jets_params(jc, seed=3)
-    jengine = JEngine(jc, params, JTokenVocab.default(), **BUCKETS)
+    jengine = jax_lax_engine(jc, params, JTokenVocab.default(), **BUCKETS)
     engine = SynthesisEngine(tc, port_jets(tc, params), TokenVocab.default(), device="cpu",
                              **BUCKETS)
     return jengine, engine

@@ -229,7 +229,7 @@ def test_dilated_conv_over_phases_is_the_dilated_conv(t, d):
     """The phase form (an undilated conv2d over the d phases of time)
     against torch's dilated conv1d, at 'same' padding and at one that is no
     multiple of d."""
-    from emotivoice_tpu_torch.parallel.tensor_parallel import conv1d_over_phases
+    from emotivoice_tpu_torch.ops.conv import conv1d_over_phases
 
     gen = torch.Generator().manual_seed(t * 10 + d)
     h = torch.randn(2, 6, t, generator=gen)
@@ -248,11 +248,11 @@ def test_wnconv1d_takes_the_phases_where_cudnn_would_not_use_tensor_cores(monkey
     """WNConv1d in bf16 goes over the phases of time at C >= 192 and a span
     (k - 1) d >= 30, else to F.conv1d; both give torch's dilated conv1d."""
     from emotivoice_tpu_torch.models.hifigan import WNConv1d
-    from emotivoice_tpu_torch.parallel import tensor_parallel as tp
+    from emotivoice_tpu_torch.ops import conv as ops_conv
 
     calls = []
-    orig = tp.conv1d_over_phases
-    monkeypatch.setattr(tp, "conv1d_over_phases", lambda *a: calls.append(1) or orig(*a))
+    orig = ops_conv.conv1d_over_phases
+    monkeypatch.setattr(ops_conv, "conv1d_over_phases", lambda *a: calls.append(1) or orig(*a))
     gen = torch.Generator().manual_seed(c + k + d)
     conv = WNConv1d(c, 4, k, dilation=d)
     with torch.no_grad():

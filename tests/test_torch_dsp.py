@@ -144,15 +144,18 @@ def test_segments_replay_jax_draw_bit_equal():
 @pytest.fixture(scope="module")
 def corpora(tmp_path_factory):
     """The same corpus written by the JAX package's tool and by the port's
-    copy."""
-    out = {}
+    copy, the two processes side by side."""
+    out, procs = {}, []
     for name, cmd in (("jax", [os.path.join(REPO, "tools/make_synthetic_corpus.py")]),
                       ("port", ["-m", "emotivoice_tpu_torch.data.synthetic_corpus"])):
         d = tmp_path_factory.mktemp(f"corpus_{name}")
-        subprocess.run([sys.executable, *cmd, "--out", str(d), "--n-train", "5",
-                        "--n-valid", "2", "--seed", "3"], check=True, cwd=REPO,
-                       capture_output=True)
+        procs.append(subprocess.Popen([sys.executable, *cmd, "--out", str(d), "--n-train", "5",
+                                       "--n-valid", "2", "--seed", "3"], cwd=REPO,
+                                      stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
         out[name] = str(d)
+    for p in procs:
+        text, _ = p.communicate(timeout=300)
+        assert p.returncode == 0, text.decode()[-3000:]
     return out
 
 

@@ -18,10 +18,10 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_support import assert_close_rel, both_configs, jax_jets_params, port_jets
+from test_torch_support import (assert_close_rel, both_configs, jax_jets_params, jax_lax_engine,
+                                port_jets)
 
 from emotivoice_tpu.frontend.tokens import TokenVocab as JTokenVocab
-from emotivoice_tpu.serving.engine import SynthesisEngine as JEngine
 from emotivoice_tpu_torch.frontend.tokens import TokenVocab
 from emotivoice_tpu_torch.models.jets import JETSGenerator, init_random_
 from emotivoice_tpu_torch.ops.cuda import build
@@ -50,7 +50,7 @@ def ref():
     jc = jc.replace(am=jc.am.__class__(**{**jc.am.__dict__, "n_vocab": n}))
     tc = tc.replace(am=tc.am.__class__(**{**tc.am.__dict__, "n_vocab": n}))
     params = jax_jets_params(jc, seed=3)
-    jengine = JEngine(jc, params, JTokenVocab.default(), **BUCKETS)
+    jengine = jax_lax_engine(jc, params, JTokenVocab.default(), **BUCKETS)
     arrays = _inputs(n, tc.am.bert_embedding)
     fn = jengine._compiled(T_TEXT, FRAMES)
     want = {}

@@ -12,6 +12,8 @@ import numpy as np
 import pytest
 import torch
 
+import jax
+
 from test_torch_support import both_configs, jax_jets_params, port_jets
 
 from emotivoice_tpu.models.jets import JETSGenerator as JJETS
@@ -19,15 +21,21 @@ from emotivoice_tpu.models.jets import JETSGenerator as JJETS
 
 @pytest.fixture(scope="module")
 def models():
+    """The JAX forward, jitted once per bucket (alpha is traced), the
+    seeded parameters and the port's model on them."""
     jc, tc = both_configs()
     params = jax_jets_params(jc, seed=3)
-    return jc, params, port_jets(tc, params)
+    forward = jax.jit(
+        lambda p, *a, max_frames, alpha: JJETS(jc, use_s2d=False).apply(
+            p, *a, max_frames=max_frames, alpha=alpha),
+        static_argnames="max_frames")
+    return jc, forward, params, port_jets(tc, params)
 
 
 @pytest.mark.parametrize("t_text,max_frames", [(10, 32), (16, 64)])
 @pytest.mark.parametrize("alpha", [1.0, 1.3])
 def test_jets_inference_matches_jax(models, t_text, max_frames, alpha):
-    jc, params, model = models
+    jc, forward, params, model = models
     rng = np.random.RandomState(t_text)
     b = 3
     tokens = rng.randint(0, jc.am.n_vocab, (b, t_text))
@@ -36,8 +44,7 @@ def test_jets_inference_matches_jax(models, t_text, max_frames, alpha):
     sty = rng.randn(b, jc.am.bert_embedding).astype(np.float32)
     con = rng.randn(b, jc.am.bert_embedding).astype(np.float32)
 
-    want = JJETS(jc).apply(params, tokens, lens, spk, sty, con,
-                           max_frames=max_frames, alpha=alpha)
+    want = forward(params, tokens, lens, spk, sty, con, max_frames=max_frames, alpha=alpha)
     with torch.no_grad():
         got = model(*(torch.as_tensor(a) for a in (tokens, lens, spk, sty, con)),
                     max_frames=max_frames, alpha=alpha)

@@ -160,8 +160,8 @@ def test_prompt_tts_inference(setup):
     lens, spk = np.array([12, 8]), np.array([2, 5])
     sty = rng.randn(b, jc.am.bert_embedding).astype(np.float32)
     con = rng.randn(b, jc.am.bert_embedding).astype(np.float32)
-    want = JPromptTTS(jc.am).apply({"params": am}, tokens, lens, spk, sty, con,
-                                   max_frames=40)
+    want = jax.jit(lambda p, *a: JPromptTTS(jc.am).apply({"params": p}, *a, max_frames=40))(
+        am, tokens, lens, spk, sty, con)
     with torch.no_grad():
         got = model.am(*(torch.as_tensor(a) for a in (tokens, lens, spk, sty, con)),
                        max_frames=40)
@@ -190,7 +190,7 @@ def small_vocoder():
     jc, tc = both_configs(SMALL_VOCODER)
     mel = np.random.RandomState(8).randn(2, 20, 20).astype(np.float32)
     shapes = jax.eval_shape(
-        lambda: jh.HiFiGANGenerator(jc.vocoder).init(jax.random.PRNGKey(0), mel))
+        lambda: jh.HiFiGANGenerator(jc.vocoder, use_s2d=False).init(jax.random.PRNGKey(0), mel))
     tree = random_params(shapes, seed=9)["params"]
     gen = HiFiGANGenerator(tc.vocoder)
     gen.load_state_dict(hifigan_state_dict(tree, tc.vocoder))
@@ -228,7 +228,7 @@ def test_hifigan_generator_both_dispatches(small_vocoder):
     """Stage 1 (C=128) runs the per-unit kernel path, stage 2 (C=64) the
     whole-stage path; on the CPU both take the plain versions."""
     jc, tree, gen, mel = small_vocoder
-    want = jh.HiFiGANGenerator(jc.vocoder).apply({"params": tree}, mel)
+    want = jax.jit(jh.HiFiGANGenerator(jc.vocoder, use_s2d=False).apply)({"params": tree}, mel)
     with torch.no_grad():
         got = gen(torch.from_numpy(mel))
     assert got.dtype == torch.float32 and got.shape == (2, 20 * 8)

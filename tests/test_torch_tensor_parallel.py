@@ -247,8 +247,8 @@ def test_three_way_axis_keeps_whole_what_jax_keeps_whole():
     args = (np.zeros((b, t), np.int32), np.full((b,), t, np.int32), np.zeros((b,), np.int32),
             np.zeros((b, jc.am.bert_embedding), np.float32),
             np.zeros((b, jc.am.bert_embedding), np.float32))
-    g_shapes = jax.eval_shape(lambda: JJETS(jc).init(jax.random.PRNGKey(0), *args,
-                                                     max_frames=16))["params"]
+    g_shapes = jax.eval_shape(lambda: JJETS(jc, use_s2d=False).init(
+        jax.random.PRNGKey(0), *args, max_frames=16))["params"]
     y = np.zeros((1, 512), np.float32)
     d_shapes = jax.eval_shape(lambda: JDiscriminator(jc.disc).init(jax.random.PRNGKey(0), y, y))
     spectral = jax.tree_util.tree_map(lambda s: np.zeros(s.shape, np.float32),
